@@ -9,10 +9,13 @@ package ``repro``; it puts ``src`` on ``sys.path`` itself. Phases, in order,
 each failing the run on any failed check:
 
 1. device:  the card's name and power limit (nvidia-smi) and torch's name;
-2. build:   nvcc builds every kernel library from ``src/repro_torch/kernels/csrc``;
+2. build:   nvcc builds every kernel library from ``src/repro_torch/kernels/csrc``
+            and prints each kernel's ptxas registers, spills and shared memory;
 3. kernels: each kernel against its plain PyTorch version on the card at the
-            main path's shapes, and timed beside its plain version, one
-            library call computing the same function, and its bound;
+            main paths' shapes, and timed beside its plain version, one
+            library call computing the same function, and its bound
+            (flash_attention at the ViT shapes and at the LM prefill shape,
+            decode_attention at the LM decode shape and two longer caches);
 4. path:    ViT-L@384 bf16 (random weights from a seeded generator) serves a
             6-frame 4G-driving trace through ``JanusEngine(execute=True)`` and
             one split inference at α=0.5, mid split; the kernels' launch
@@ -24,7 +27,16 @@ each failing the run on any failed check:
             kernel time on the card, idle share, top kernels;
 6. parity:  ViT-L@384 in f32, ``vit.forward_janus`` through the kernels
             against the plain path on the card: logits within tolerance and
-            identical merge indices per merge layer.
+            identical merge indices per merge layer;
+7. lm:      starcoder2-3b bf16 at full width and depth (random weights from
+            a seeded generator) serves 8 prompts of 1024 tokens through
+            ``lm.prefill`` and 64 greedy ``lm.decode_step``s on a cache of
+            capacity 2048; the launch counters are zeroed just before and
+            read just after (flash 30, decode 1920, tome_scores 0);
+   lm trace: torch.profiler over one decode step and over the prefill;
+8. lm parity: starcoder2-3b in f32, prefill of 2 x 256 tokens and 8
+            teacher-forced decode steps through the kernels against the
+            plain versions on the card: logits within tolerance at every step.
 
 The line before the last is the kernels JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without a card, or outside a checkout, it
@@ -35,6 +47,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import pathlib
+import re
 import subprocess
 import sys
 import time
@@ -50,8 +63,10 @@ PEAK_BYTES = 3.35e12
 FLASH_F32 = dict(atol=2e-5, rtol=1e-4)
 FLASH_BF16 = dict(atol=2e-2, rtol=0.0)
 TOME_MAX = dict(atol=2e-5, rtol=1e-3)   # tests/test_kernels.py:29-30
+DECODE_F32 = dict(atol=2e-5, rtol=1e-4)  # tests/test_kernels.py:113
+DECODE_BF16 = dict(atol=2e-2, rtol=0.0)  # f32 math on both sides, one rounding of the output
 BATCH_BF16 = dict(atol=0.1, rtol=0.05)  # bucketed vs exact logits, bf16, 6 layers
-PARITY_F32 = dict(atol=1e-3, rtol=1e-3)  # kernels vs plain, f32, 24 layers
+PARITY_F32 = dict(atol=1e-3, rtol=1e-3)  # kernels vs plain, f32 whole paths (ViT 24, LM 30 layers)
 
 
 def fail(msg: str) -> None:
@@ -89,28 +104,68 @@ def main() -> int:
     print(f"[build] nvcc sm_90a, {len(_build.SOURCES)} libraries in {build_s:.1f} s "
           f"-> {_build.BUILD_DIR}")
     for name in _build.SOURCES:
-        for line in _build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[build] {name}: {line.strip()}")
+        for line in ptxas_summary(_build.build_log(name)):
+            print(f"[build] {name}: {line}")
 
     from repro_torch.runtime.device import parity_numerics
     parity_numerics()  # f32 plain versions and f32 phases must not use TF32
-    rows = kernel_phase(torch)
+    rows = kernel_phase(torch) + [decode_kernel_phase(torch)]
     model = _vit_l(torch, torch.bfloat16)
     path_counts = path_phase(torch, *model)
     batch_phase(torch, *model)
     trace_phase(torch, *model)
     del model
     parity_phase(torch)
+    torch.cuda.empty_cache()
+    lm_counts = lm_phase(torch)
+    torch.cuda.empty_cache()
+    lm_parity_phase(torch)
 
     for row in rows:
-        row["launches"] = row["path_launches"] = path_counts[row["name"]]
+        name = row["name"]
+        row["launches"] = path_counts[name] + lm_counts[name]
+        row["path_launches"] = {"vit": path_counts[name], "lm": lm_counts[name]}
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0
+
+
+def ptxas_summary(log: str) -> list[str]:
+    """One line per kernel instantiation of nvcc's -Xptxas -v output:
+    ``name<type,D>: registers, spill stores/loads, shared memory``."""
+    out, name, spill = [], "?", (0, 0)
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '\w*?\d+([a-z_]+_kernel)I(\w*?)EEv", line)
+        if m:
+            args = re.sub(r"^f", "f32,", m.group(2).replace("13__nv_bfloat16", "bf16,"))
+            args = re.sub(r"Li(\d+)E?", r"\1,", args).rstrip(",")
+            name = f"{m.group(1)}<{args}>"
+        elif "spill stores" in line:
+            spill = tuple(int(n) for n in re.findall(r"(\d+) bytes spill", line))
+        elif "registers" in line:
+            regs = re.search(r"Used (\d+) registers", line).group(1)
+            smem = re.search(r"(\d+) bytes smem", line)
+            out.append(f"{name}: {regs} registers, {spill[0]} B spill stores, {spill[1]} B "
+                       f"spill loads, {smem.group(1) if smem else 0} B smem")
+    return out
+
+
+def counters():
+    from repro_torch.kernels import decode_attention, flash_attention, tome_scores
+    return {"flash_attention": flash_attention, "tome_scores": tome_scores,
+            "decode_attention": decode_attention}
+
+
+def zero_counts() -> None:
+    for mod in counters().values():
+        mod.launches = 0
+
+
+def read_counts() -> dict[str, int]:
+    return {name: mod.launches for name, mod in counters().items()}
 
 
 def time_ms(torch, fn, iters: int = 30) -> float:
@@ -145,7 +200,7 @@ def kernel_phase(torch) -> list[dict]:
     h, s, d = 16, 577, 64
     flash_err = {torch.float32: 0.0, torch.bfloat16: 0.0}
 
-    def flash_case(label, b, dtype, sq=s, sk=s, pads=0, kv=False, causal=False):
+    def flash_case(label, b, dtype, sq=s, sk=s, pads=0, kv=False, causal=False, h=h, d=d):
         q = torch.randn((b, h, sq, d), generator=gen, device=dev).to(dtype)
         k, v = (torch.randn((b, h, sk, d), generator=gen, device=dev).to(dtype) for _ in "kv")
         sizes = torch.randint(1, 5, (b, sk), generator=gen, device=dev).float()
@@ -172,6 +227,8 @@ def kernel_phase(torch) -> list[dict]:
     flash_case("bucket pads (-inf bias)", 8, torch.bfloat16, sq=592, sk=592, pads=15)
     flash_case("kv_len", 8, torch.bfloat16, kv=True)
     flash_case("causal", 2, torch.float32, sq=300, sk=577, causal=True)
+    for dtype in (torch.bfloat16, torch.float32):  # starcoder2-3b prefill: 24 heads of 128
+        flash_case("LM prefill causal", 8, dtype, sq=1024, sk=1024, causal=True, h=24, d=128)
 
     tome_err = 0.0
 
@@ -216,6 +273,20 @@ def kernel_phase(torch) -> list[dict]:
         b_ms, b_by = bound(flops, nbytes, PEAK_BF16)
         print(f"[kernels] flash_attention B={b} bf16 timing: kernel {ms:.4f} ms, plain "
               f"{plain:.4f} ms, sdpa {lib:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    # the LM prefill's call: B=8, 24 heads, 1024 tokens, D=128, causal
+    q, k, v, _ = flash_case("LM prefill timed", 8, torch.bfloat16, sq=1024, sk=1024,
+                            causal=True, h=24, d=128)
+    p_ms = time_ms(torch, lambda: flash_mod.flash_attention(q, k, v, causal=True), iters=10)
+    p_plain = time_ms(torch, lambda: ref.flash_attention_ref(q, k, v, causal=True), iters=10)
+    p_lib = time_ms(torch, lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True),
+                    iters=10)
+    # causal: 1024 * 1025 / 2 (query, key) pairs of 4 * D flops
+    p_bound, p_by = bound(4.0 * 8 * 24 * 128 * 1024 * 1025 / 2,
+                          4 * q.numel() * q.element_size(), PEAK_BF16)
+    print(f"[kernels] flash_attention LM prefill B=8 H=24 S=1024 D=128 causal bf16 timing: "
+          f"kernel {p_ms:.4f} ms, plain {p_plain:.4f} ms, sdpa(is_causal) {p_lib:.4f} ms, "
+          f"bound {p_bound:.4f} ms ({p_by})")
+    del q, k, v
     rows.append(dict(
         name="flash_attention", route="cuda",
         source="src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -224,7 +295,11 @@ def kernel_phase(torch) -> list[dict]:
         tol={"f32": FLASH_F32, "bf16": FLASH_BF16},
         ms=ms, kernel_ms=ms, plain_ms=plain, library_ms=lib,
         library="torch.nn.functional.scaled_dot_product_attention(attn_mask=bias)",
-        bound_ms=b_ms, bound_us=b_ms * 1e3, bound_by=b_by))
+        bound_ms=b_ms, bound_us=b_ms * 1e3, bound_by=b_by,
+        shape="ViT cloud batch: q,k,v [8,16,577,64] bf16, bias [8,577]",
+        lm_prefill=dict(shape="q,k,v [8,24,1024,128] bf16, causal", ms=p_ms, plain_ms=p_plain,
+                        library_ms=p_lib, bound_ms=p_bound, bound_by=p_by,
+                        library="scaled_dot_product_attention(is_causal=True)")))
     for b in (1, 8):
         _, a, bb = tome_case(b, False)
         ms = time_ms(torch, lambda: tome_mod.tome_scores(a, bb))
@@ -245,6 +320,90 @@ def kernel_phase(torch) -> list[dict]:
         library="torch.bmm(a, b.transpose(1, 2)).max(-1)",
         bound_ms=b_ms, bound_us=b_ms * 1e3, bound_by=b_by))
     return rows
+
+
+def decode_kernel_phase(torch) -> dict:
+    """decode_attention against its plain version (lengths 1, ragged inside a
+    tile, full; group 12 as starcoder2-3b and 2 as internlm2; D 64 and 128;
+    f32 and bf16), then timed at the LM path's last decode step and at two
+    longer caches, beside its plain version and SDPA with a length mask."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention as decode_mod
+    from repro_torch.kernels import ref
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    err_max = 0.0
+
+    def inputs(b, hq, hkv, s, d, dtype):
+        q = torch.randn((b, hq, d), generator=gen, device=dev).to(dtype)
+        k, v = (torch.randn((b, s, hkv, d), generator=gen, device=dev).to(dtype) for _ in "kv")
+        return q, k, v
+
+    s = 1500
+    lengths = torch.tensor([1, 1061, s], dtype=torch.int32, device=dev)
+    for dtype in (torch.float32, torch.bfloat16):
+        for hq, hkv in ((24, 2), (16, 8)):
+            for d in (64, 128):
+                q, k, v = inputs(3, hq, hkv, s, d, dtype)
+                out = decode_mod.decode_attention(q, k, v, lengths)
+                exp = ref.decode_attention_ref(q, k, v, lengths)
+                torch.cuda.synchronize()
+                tol = DECODE_F32 if dtype == torch.float32 else DECODE_BF16
+                err = (out.float() - exp.float()).abs().max().item()
+                err_max = max(err_max, err)
+                ok = bool(torch.isfinite(out).all()) and torch.allclose(
+                    out.float(), exp.float(), **tol)
+                print(f"[kernels] decode_attention B=3 Hq={hq} Hkv={hkv} S={s} D={d} "
+                      f"lengths={lengths.tolist()} {str(dtype)[6:]} max_abs_err={err:.3e} "
+                      f"tol={tol} {'ok' if ok else 'FAIL'}")
+                check(ok, "decode_attention disagrees with its plain version")
+
+    timings = []
+    for b, s, n in ((8, 2048, 1088), (8, 8192, 8192), (1, 32768, 32768)):
+        q, k, v = inputs(b, 24, 2, s, 128, torch.bfloat16)
+        lens = torch.full((b,), n, dtype=torch.int32, device=dev)
+        out = decode_mod.decode_attention(q, k, v, lens)
+        exp = ref.decode_attention_ref(q, k, v, lens)
+        kt, vt = (t.transpose(1, 2).contiguous() for t in (k, v))  # [B, Hkv, S, D]
+        mask = (torch.arange(s, device=dev) < lens[:, None])[:, None, None, :]
+
+        def library():
+            return F.scaled_dot_product_attention(q[:, :, None], kt, vt, attn_mask=mask,
+                                                  enable_gqa=True)
+
+        lib_err = (library()[:, :, 0].float() - exp.float()).abs().max().item()
+        err = (out.float() - exp.float()).abs().max().item()
+        err_max = max(err_max, err)
+        check(torch.allclose(out.float(), exp.float(), **DECODE_BF16),
+              "decode_attention disagrees with its plain version at a timed shape")
+        ms = time_ms(torch, lambda: decode_mod.decode_attention(q, k, v, lens))
+        plain = time_ms(torch, lambda: ref.decode_attention_ref(q, k, v, lens))
+        lib = time_ms(torch, library)
+        # the valid cache read once, q read and the output written once
+        nbytes = 2 * b * n * 2 * 128 * 2 + 2 * q.numel() * 2 + b * 4
+        b_ms, b_by = bound(4.0 * b * 24 * n * 128, nbytes, PEAK_BF16)
+        print(f"[kernels] decode_attention B={b} Hq=24 Hkv=2 D=128 S={s} length={n} bf16 "
+              f"timing: kernel {ms:.4f} ms, plain {plain:.4f} ms, sdpa(enable_gqa, mask) "
+              f"{lib:.4f} ms (max|sdpa-plain|={lib_err:.2e}), bound {b_ms:.4f} ms "
+              f"({b_by}, {nbytes / 1e6:.1f} MB), splits {decode_mod.n_splits(b, 24, 2, s)}")
+        timings.append(dict(shape=f"q [{b},24,128], k/v [{b},{s},2,128] bf16, length {n}",
+                            ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
+                            bound_by=b_by, max_abs_err=err))
+        del q, k, v, kt, vt
+    path = timings[0]
+    return dict(
+        name="decode_attention", route="cuda",
+        source="src/repro_torch/kernels/csrc/decode_attention.cu",
+        replaces="src/repro/kernels/decode_attention.py:66",
+        max_abs_err=err_max, max_err=err_max,
+        tol={"f32": DECODE_F32, "bf16": DECODE_BF16},
+        ms=path["ms"], kernel_ms=path["ms"], plain_ms=path["plain_ms"],
+        library_ms=path["library_ms"],
+        library="torch.nn.functional.scaled_dot_product_attention(enable_gqa=True, "
+                "attn_mask=length mask)",
+        bound_ms=path["bound_ms"], bound_us=path["bound_ms"] * 1e3, bound_by=path["bound_by"],
+        shape=path["shape"], timings=timings)
 
 
 # ------------------------------------------------------------------------ path
@@ -269,8 +428,6 @@ def _merge_layers(cfg, alpha) -> int:
 def path_phase(torch, cfg, params, images) -> dict[str, int]:
     from repro_torch.configs import janus_vit_l384
     from repro_torch.core import bandwidth, engine, pruning
-    from repro_torch.kernels import flash_attention as flash_mod
-    from repro_torch.kernels import tome_scores as tome_mod
     from repro_torch.launch.serve import make_profile
 
     def sync_now():
@@ -314,7 +471,7 @@ def path_phase(torch, cfg, params, images) -> dict[str, int]:
     trace = bandwidth.synthetic_trace("4g", "driving", steps=6, seed=0)
     fixed = tuple(pruning.make_schedule("exponential", 0.5, cfg.n_layers, cfg.num_tokens))
 
-    flash_mod.launches = tome_mod.launches = 0
+    zero_counts()
     stats = eng.run_trace(trace, 6, images=images)
     t0 = sync_now()
     x, sizes = engine.device_forward(params, cfg, images, fixed, 12)
@@ -323,7 +480,7 @@ def path_phase(torch, cfg, params, images) -> dict[str, int]:
     t2 = sync_now()
     logits = engine.cloud_forward(params, cfg, x, sizes, fixed, 12)
     t3 = sync_now()
-    counts = {"flash_attention": flash_mod.launches, "tome_scores": tome_mod.launches}
+    counts = read_counts()
 
     for i, (f, ms) in enumerate(zip(stats.frames, eng.frame_ms)):
         print(f"[path] frame {i}: alpha={f.alpha:.2f} split={f.split} "
@@ -341,9 +498,11 @@ def path_phase(torch, cfg, params, images) -> dict[str, int]:
     exp_tome = sum(_merge_layers(cfg, f.alpha) for f in stats.frames) + _merge_layers(cfg, 0.5)
     print(f"[path] launches: flash_attention={counts['flash_attention']} "
           f"(schedule implies {exp_flash}), tome_scores={counts['tome_scores']} "
-          f"(schedule implies {exp_tome}); plan cache traces={eng.plan_cache.traces_by_kind}")
+          f"(schedule implies {exp_tome}), decode_attention={counts['decode_attention']}; "
+          f"plan cache traces={eng.plan_cache.traces_by_kind}")
     check(counts["flash_attention"] == exp_flash > 0, "flash_attention launch count")
     check(counts["tome_scores"] == exp_tome > 0, "tome_scores launch count")
+    check(counts["decode_attention"] == 0, "the ViT path launched decode_attention")
     return counts
 
 
@@ -418,11 +577,7 @@ def batch_phase(torch, cfg, params, images) -> None:
 def trace_phase(torch, cfg, params, images) -> None:
     """Where a frame's device time goes: torch.profiler over one device
     partition (B=1, α=0.27, all 24 layers: the trace's usual decision) and
-    one bucketed cloud batch of 8 at split 18. Prints the wall time, the sum
-    of kernel time on the card, the idle share and the top kernels."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    one bucketed cloud batch of 8 at split 18."""
     from repro_torch.core import engine, pruning
 
     sched27 = tuple(pruning.make_schedule("exponential", 0.27, cfg.n_layers, cfg.num_tokens))
@@ -432,34 +587,40 @@ def trace_phase(torch, cfg, params, images) -> None:
     xp, sp = engine._pad_tokens(x, sizes, edge)
     cache = engine.CompiledPlanCache()
     cloud = cache.cloud_padded_fn(cfg, sched15[18:], 18, xp)
-    cases = {
-        "device partition B=1": lambda: engine.device_forward(params, cfg, images, sched27,
-                                                               cfg.n_layers),
-        "cloud batch B=8 split 18 (padded)": lambda: cloud(params, xp, sp),
-    }
-    for label, fn in cases.items():
+    profile_once(torch, "device partition B=1",
+                 lambda: engine.device_forward(params, cfg, images, sched27, cfg.n_layers))
+    profile_once(torch, "cloud batch B=8 split 18 (padded)", lambda: cloud(params, xp, sp))
+
+
+def profile_once(torch, label: str, fn) -> None:
+    """torch.profiler over one call of ``fn`` after one warm call: prints the
+    wall time, the sum of kernel time on the card, the idle share and the
+    top kernels as ``[trace]`` lines."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        kernels: dict[str, list[float]] = {}
-        for ev in prof.events():
-            if ev.device_type == DeviceType.CUDA:
-                kernels.setdefault(ev.name, []).append(ev.time_range.elapsed_us() / 1e3)
-        busy_ms = sum(sum(v) for v in kernels.values())
-        n = sum(len(v) for v in kernels.values())
-        if n == 0:
-            print(f"[trace] {label}: wall {wall_ms:.2f} ms; the profiler saw no kernel on "
-                  "the card (device time not measured)")
-            continue
-        print(f"[trace] {label}: wall {wall_ms:.2f} ms, kernels on the card {busy_ms:.2f} ms "
-              f"in {n} launches, idle share {1 - busy_ms / wall_ms:.3f}")
-        top = sorted(kernels.items(), key=lambda kv: -sum(kv[1]))[:8]
-        for name, ts in top:
-            print(f"[trace]   {sum(ts):8.3f} ms {len(ts):5d}x  {name[:90]}")
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels: dict[str, list[float]] = {}
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA:
+            kernels.setdefault(ev.name, []).append(ev.time_range.elapsed_us() / 1e3)
+    busy_ms = sum(sum(v) for v in kernels.values())
+    n = sum(len(v) for v in kernels.values())
+    if n == 0:
+        print(f"[trace] {label}: wall {wall_ms:.2f} ms; the profiler saw no kernel on "
+              "the card (device time not measured)")
+        return
+    print(f"[trace] {label}: wall {wall_ms:.2f} ms, kernels on the card {busy_ms:.2f} ms "
+          f"in {n} launches, idle share {1 - busy_ms / wall_ms:.3f}")
+    top = sorted(kernels.items(), key=lambda kv: -sum(kv[1]))[:8]
+    for name, ts in top:
+        print(f"[trace]   {sum(ts):8.3f} ms {len(ts):5d}x  {name[:90]}")
 
 
 # ---------------------------------------------------------------------- parity
@@ -518,6 +679,121 @@ def parity_phase(torch) -> None:
           f"{len(merge_layers) - len(flips)}/{len(merge_layers)} merge layers, "
           f"{time.perf_counter() - t0:.1f} s {'ok' if ok else 'FAIL'}")
     check(ok, "f32 whole-path parity failed")
+
+
+# -------------------------------------------------------------------------- lm
+
+LM_BATCH, LM_PROMPT, LM_STEPS, LM_CAPACITY = 8, 1024, 64, 2048
+
+
+def _starcoder2(torch, dtype):
+    from repro_torch.configs import starcoder2_3b
+    from repro_torch.models import lm, param
+    cfg = dataclasses.replace(starcoder2_3b.CONFIG, dtype=dtype)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    return cfg, param.init_params(lm.specs(cfg), gen, "cuda", dtype=dtype)
+
+
+def lm_phase(torch) -> dict[str, int]:
+    """starcoder2-3b bf16 serving: prefill of 8 x 1024 random tokens into a
+    cache of capacity 2048, then 64 greedy decode steps, each closed by a
+    synchronize; the launch counters are zeroed just before and read just
+    after. Then torch.profiler over one decode step and over the prefill."""
+    from repro_torch.models import lm, param
+
+    cfg, params = _starcoder2(torch, torch.bfloat16)
+    weights_gb = sum(t.numel() * t.element_size() for t in param.flatten(params).values()) / 1e9
+    tokens = torch.randint(0, cfg.vocab, (LM_BATCH, LM_PROMPT), dtype=torch.int32, device="cuda",
+                           generator=torch.Generator(device="cuda").manual_seed(1))
+    print(f"[lm] starcoder2-3b bf16: {cfg.n_layers} layers, d={cfg.d_model}, {cfg.n_heads} q "
+          f"heads over {cfg.n_kv} kv heads of {cfg.hd}, d_ff={cfg.d_ff}, vocab={cfg.vocab}; "
+          f"weights {weights_gb:.3f} GB on {torch.cuda.get_device_name(0)}")
+    # warm-up outside the counted run: cuBLAS handles, allocator, kernel libraries
+    logits, cache = lm.prefill(params, cfg, tokens[:, :64], max_len=128)
+    lm.decode_step(params, cfg, logits.argmax(-1).int(), cache, 64)
+    del logits, cache
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    zero_counts()
+    t0 = time.perf_counter()
+    logits, cache = lm.prefill(params, cfg, tokens, max_len=LM_CAPACITY)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    tok = logits[:, -1].argmax(-1, keepdim=True).int()
+    finite, step_ms = [torch.isfinite(logits).all()], []
+    for i in range(LM_STEPS):
+        t0 = time.perf_counter()
+        logits, cache = lm.decode_step(params, cfg, tok, cache, LM_PROMPT + i)
+        tok = logits[:, -1].argmax(-1, keepdim=True).int()
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        finite.append(torch.isfinite(logits).all())
+    counts = read_counts()
+
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    steps = sorted(step_ms)
+    print(f"[lm] prefill B={LM_BATCH} x {LM_PROMPT} tokens into a cache of {LM_CAPACITY} "
+          f"({cache['k'].numel() * 2 * cache['k'].element_size() / 1e6:.0f} MB): "
+          f"{prefill_ms:.2f} ms ({LM_BATCH * LM_PROMPT / prefill_ms * 1e3:.0f} prompt tokens/s)")
+    print(f"[lm] decode {LM_STEPS} greedy steps of B={LM_BATCH} (cache length "
+          f"{LM_PROMPT + 1}..{LM_PROMPT + LM_STEPS}): per step median "
+          f"{steps[len(steps) // 2]:.2f} ms, max {steps[-1]:.2f} ms, first {step_ms[0]:.2f} ms; "
+          f"{LM_BATCH * LM_STEPS / sum(step_ms) * 1e3:.1f} generated tokens/s")
+    print(f"[lm] weights {weights_gb:.3f} GB, max_memory_allocated {peak_gb:.3f} GB")
+    exp = {"flash_attention": cfg.n_layers, "decode_attention": cfg.n_layers * LM_STEPS,
+           "tome_scores": 0}
+    print(f"[lm] launches: {counts} (prefill and {LM_STEPS} steps imply {exp})")
+    check(tuple(logits.shape) == (LM_BATCH, 1, cfg.vocab), "decode logits shape")
+    check(bool(torch.stack(finite).all()), "non-finite LM logits")
+    check(counts == exp, "LM path launch counts")
+
+    profile_once(torch, f"lm decode step B={LM_BATCH} at cache length {LM_PROMPT + LM_STEPS + 1}",
+                 lambda: lm.decode_step(params, cfg, tok, cache, LM_PROMPT + LM_STEPS))
+    del cache
+    profile_once(torch, f"lm prefill B={LM_BATCH} x {LM_PROMPT} tokens",
+                 lambda: lm.prefill(params, cfg, tokens, max_len=LM_CAPACITY))
+    return counts
+
+
+def lm_parity_phase(torch) -> None:
+    """starcoder2-3b in f32 on the card, through the kernels against the
+    plain versions: prefill of 2 x 256 tokens, then 8 teacher-forced decode
+    steps (both runs get the same tokens, so a near-tie cannot make them
+    diverge). Logits must agree at every step."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+
+    cfg, params = _starcoder2(torch, torch.float32)
+    prompt, steps = 256, 8
+    tokens = torch.randint(0, cfg.vocab, (2, prompt + steps), dtype=torch.int32, device="cuda",
+                           generator=torch.Generator(device="cuda").manual_seed(2))
+
+    def run():
+        logits, cache = lm.prefill(params, cfg, tokens[:, :prompt], max_len=prompt + steps)
+        out = [logits]
+        for i in range(steps):
+            logits, cache = lm.decode_step(params, cfg, tokens[:, prompt + i:prompt + i + 1],
+                                           cache, prompt + i)
+            out.append(logits)
+        return out, cache
+
+    t0 = time.perf_counter()
+    lk, ck = run()
+    with ops.plain_versions():
+        lp, cp = run()
+    torch.cuda.synchronize()
+    errs = [(a - b).abs().max().item() for a, b in zip(lk, lp)]
+    cache_err = max((ck[n] - cp[n]).abs().max().item() for n in "kv")
+    ok = all(torch.allclose(a, b, **PARITY_F32) for a, b in zip(lk, lp)) and torch.allclose(
+        ck["k"], cp["k"], **PARITY_F32) and torch.allclose(ck["v"], cp["v"], **PARITY_F32)
+    print(f"[lm parity] starcoder2-3b f32, all {cfg.n_layers} layers, B=2 prompt {prompt} + "
+          f"{steps} teacher-forced steps: kernels vs plain max|dlogits| prefill {errs[0]:.3e}, "
+          f"decode steps {' '.join(f'{e:.2e}' for e in errs[1:])}, max|dcache| "
+          f"{cache_err:.3e}, tol={PARITY_F32}, |logits| max {lp[-1].abs().max().item():.2f}, "
+          f"{time.perf_counter() - t0:.1f} s {'ok' if ok else 'FAIL'}")
+    check(ok, "f32 LM parity failed")
 
 
 if __name__ == "__main__":

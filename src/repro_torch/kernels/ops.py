@@ -1,6 +1,6 @@
 """Dispatch the model calls: the Hopper kernels, or their plain versions.
 
-The model (``models.layers.sdpa``, ``core.tome``) calls these. By default a
+The model (``models.layers``, ``core.tome``) calls these. By default a
 call goes to the kernel wrapper, which runs the kernel on a CUDA tensor and
 the plain version on a CPU tensor. ``plain_versions()`` routes every call in
 its scope to the plain versions on any device, so that a run on the card can
@@ -12,6 +12,7 @@ from __future__ import annotations
 import contextlib
 import contextvars
 
+from repro_torch.kernels import decode_attention as _decode
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import ref
 from repro_torch.kernels import tome_scores as _tome
@@ -42,3 +43,11 @@ def tome_scores(a, b, nb_len=None):
     if _PLAIN.get():
         return ref.tome_scores_ref(a, b, nb_len)
     return _tome.tome_scores(a, b, nb_len)
+
+
+def decode_attention(q, k, v, lengths):
+    """q [B, Hq, D], k/v cache [B, S, Hkv, D], valid ``lengths`` [B] (or a
+    scalar) -> [B, Hq, D]; see ``kernels.decode_attention``."""
+    if _PLAIN.get():
+        return ref.decode_attention_ref(q, k, v, lengths)
+    return _decode.decode_attention(q, k, v, lengths)

@@ -54,3 +54,29 @@ def tome_scores_ref(a: torch.Tensor, b: torch.Tensor,
         valid = col[None, :] < nb_len.to(a.device)[:, None]
         scores = scores.masked_fill(~valid[:, None, :], -torch.inf)
     return scores.amax(dim=-1), scores.argmax(dim=-1).to(torch.int32)
+
+
+def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         lengths: torch.Tensor | int) -> torch.Tensor:
+    """q [B, Hq, D], k/v cache [B, S, Hkv, D] -> [B, Hq, D] in q's dtype.
+
+    Single-query GQA attention: q head h reads kv head h // (Hq // Hkv).
+    ``lengths`` [B] int32, or a scalar broadcast to [B]: keys at or past it
+    are masked. f32 scores scaled by 1/sqrt(D), softmax weights of masked
+    keys exactly 0 (cache entries past the length never reach the output,
+    whatever they hold), output normalised by max(l, 1e-30) and cast once,
+    so a row with length 0 outputs 0 (as the Pallas kernel; its jnp oracle
+    gives NaN)."""
+    b, hq, d = q.shape
+    s, hkv = k.shape[1], k.shape[2]
+    qg = q.float().reshape(b, hkv, hq // hkv, d)
+    scores = torch.einsum("bhgd,bshd->bhgs", qg, k.float()) * (1.0 / math.sqrt(d))
+    lengths = torch.as_tensor(lengths, device=q.device).reshape(-1).expand(b)
+    valid = (torch.arange(s, device=q.device)[None, :] < lengths[:, None])[:, None, None, :]
+    scores = torch.where(valid, scores, torch.full_like(scores, NEG))
+    m = scores.amax(dim=-1, keepdim=True)
+    p = torch.where(valid, torch.exp(scores - m), torch.zeros_like(scores))
+    v = torch.where(valid[:, 0, 0, :, None, None], v.float(), 0.0)  # as the kernel: never read
+    out = torch.einsum("bhgs,bshd->bhgd", p, v)
+    out = out / p.sum(-1, keepdim=True).clamp_min(1e-30)
+    return out.reshape(b, hq, d).to(q.dtype)

@@ -133,3 +133,8 @@ def stack_specs(n: int, make_one: Callable[[], dict]) -> dict:
     return tree_map(lambda s: ParamSpec((n,) + s.shape, ("layers",) + s.axes,
                                         dtype=s.dtype, init=s.init, scale=s.scale),
                     make_one())
+
+
+def layer_params(params: dict, l: int) -> dict:
+    """Layer ``l``'s slice of the stacked ``blocks/*`` params (views)."""
+    return tree_map(lambda a: a[l], params["blocks"])

@@ -20,7 +20,7 @@ import torch
 
 from repro_torch.core import tome
 from repro_torch.models import layers as L
-from repro_torch.models.param import ParamSpec, stack_specs, tree_map
+from repro_torch.models.param import ParamSpec, layer_params, stack_specs
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,7 +57,7 @@ class ViTConfig:
 def _block_specs(cfg: ViTConfig) -> dict:
     return {
         "ln1": L.layernorm_specs(cfg.d_model),
-        "attn": L.attention_specs(cfg.d_model, cfg.n_heads, cfg.head_dim,
+        "attn": L.attention_specs(cfg.d_model, cfg.n_heads, cfg.n_heads, cfg.head_dim,
                                   bias=True, fused_qkv=cfg.fused_qkv),
         "ln2": L.layernorm_specs(cfg.d_model),
         "mlp": L.mlp_specs(cfg.d_model, cfg.d_ff),
@@ -97,9 +97,9 @@ def _block(bp: dict, cfg: ViTConfig, x: torch.Tensor, sizes: torch.Tensor | None
     bias = None
     if sizes is not None and cfg.prop_attn:
         bias = torch.log(sizes.float())
-    attn_out, metric = L.attention(bp["attn"], L.layernorm(bp["ln1"], x),
-                                   n_heads=cfg.n_heads, head_dim=cfg.head_dim,
-                                   bias=bias, return_metric=True)
+    attn_out, _, metric = L.attention(bp["attn"], L.layernorm(bp["ln1"], x),
+                                      n_heads=cfg.n_heads, n_kv=cfg.n_heads,
+                                      head_dim=cfg.head_dim, bias=bias, return_metric=True)
     x = x + attn_out
     if merge_r > 0:
         if sizes is None:
@@ -107,11 +107,6 @@ def _block(bp: dict, cfg: ViTConfig, x: torch.Tensor, sizes: torch.Tensor | None
         x, sizes = tome.tome_merge(x, metric, sizes, merge_r)
     x = x + L.mlp(bp["mlp"], L.layernorm(bp["ln2"], x))
     return x, sizes
-
-
-def layer_params(params: dict, l: int) -> dict:
-    """One layer's slice of the stacked block params (views)."""
-    return tree_map(lambda a: a[l], params["blocks"])
 
 
 def run_blocks(params: dict, cfg: ViTConfig, x: torch.Tensor, sizes: torch.Tensor,
@@ -137,9 +132,9 @@ def _block_padded(bp: dict, cfg: ViTConfig, x: torch.Tensor, sizes: torch.Tensor
         bias = torch.log(s32)  # pads: log(0) = -inf
     else:
         bias = torch.where(s32 > 0.0, 0.0, -torch.inf)
-    attn_out, metric = L.attention(bp["attn"], L.layernorm(bp["ln1"], x),
-                                   n_heads=cfg.n_heads, head_dim=cfg.head_dim,
-                                   bias=bias, return_metric=True)
+    attn_out, _, metric = L.attention(bp["attn"], L.layernorm(bp["ln1"], x),
+                                      n_heads=cfg.n_heads, n_kv=cfg.n_heads,
+                                      head_dim=cfg.head_dim, bias=bias, return_metric=True)
     x = x + attn_out
     if merge_r > 0:
         x, sizes = tome.tome_merge_padded(x, metric, sizes, merge_r)

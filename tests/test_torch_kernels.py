@@ -5,7 +5,8 @@ wrappers use for CPU tensors) are held against the reference Pallas kernels
 in interpret mode and the reference's jnp oracles, in f32, at the shapes of
 ``tests/test_kernels.py``. Tolerances: flash atol 2e-5 / rtol 1e-4; tome max
 atol 2e-5 / rtol 1e-3 and argmax by score at the chosen index (ties may
-legitimately pick another index) — the reference tests' own tolerances.
+legitimately pick another index); decode atol 2e-5 / rtol 1e-4 — the
+reference tests' own tolerances.
 
 The CUDA kernels themselves are held against these plain versions on the
 card by ``tests/test_torch_kernels_card.py``.
@@ -16,9 +17,11 @@ import pytest
 import torch
 
 from repro.kernels import ref as jref
+from repro.kernels.decode_attention import decode_attention as jdecode
 from repro.kernels.flash_attention import flash_attention as jflash
 from repro.kernels.tome_scores import tome_scores as jtome
 
+from repro_torch.kernels import decode_attention as decode_mod
 from repro_torch.kernels import flash_attention as flash_mod
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import tome_scores as tome_mod
@@ -180,3 +183,81 @@ def test_nb_len_equals_tome_merge_padded_mask(n, reals):
     mx, ix = ref.tome_scores_ref(_t(a), _t(bset), nb_len)
     np.testing.assert_allclose(mx.numpy(), np.asarray(scores.max(-1)), atol=2e-5, rtol=1e-3)
     assert np.array_equal(ix.numpy(), np.asarray(scores.argmax(-1)))
+
+
+# --------------------------------------------------------------- decode (CPU)
+
+@pytest.mark.parametrize("b,hq,hkv,s,d,length", [
+    (2, 8, 2, 256, 32, 200), (1, 4, 4, 100, 64, 100),
+    (3, 6, 2, 515, 16, 300), (2, 16, 1, 128, 64, 1), (1, 8, 8, 64, 128, 33),
+])
+def test_decode_ref_matches_reference_kernel(b, hq, hkv, s, d, length):
+    """The shapes of ``tests/test_kernels.py``; the plain version and the
+    wrapper on a CPU tensor against the Pallas kernel (interpret mode, as
+    the reference tests run it) and its jnp oracle."""
+    rng = np.random.default_rng(7)
+    q, k, v = _randn(rng, (b, hq, d)), _randn(rng, (b, s, hkv, d)), _randn(rng, (b, s, hkv, d))
+    out = ref.decode_attention_ref(_t(q), _t(k), _t(v), length).numpy()
+    wrapped = ops.decode_attention(_t(q), _t(k), _t(v),
+                                   torch.full((b,), length, dtype=torch.int32)).numpy()
+    pallas = np.asarray(jdecode(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                jnp.int32(length), bs=128))
+    oracle = np.asarray(jref.decode_attention_ref(jnp.asarray(q), jnp.asarray(k),
+                                                  jnp.asarray(v), jnp.int32(length)))
+    np.testing.assert_allclose(out, pallas, atol=ATOL, rtol=RTOL)
+    np.testing.assert_allclose(out, oracle, atol=ATOL, rtol=RTOL)
+    assert np.array_equal(wrapped, out)
+
+
+def test_decode_ref_per_member_lengths_and_empty_rows():
+    """Lengths [B] mask each member on its own (the Pallas kernel takes one
+    scalar: each member is held against its own call); a length of 0 gives
+    0, as the Pallas kernel (its jnp oracle gives NaN)."""
+    rng = np.random.default_rng(8)
+    b, hq, hkv, s, d = 4, 6, 2, 150, 32
+    q, k, v = _randn(rng, (b, hq, d)), _randn(rng, (b, s, hkv, d)), _randn(rng, (b, s, hkv, d))
+    lengths = np.asarray([1, 77, 150, 0], np.int32)
+    out = ref.decode_attention_ref(_t(q), _t(k), _t(v), torch.from_numpy(lengths)).numpy()
+    for i, n in enumerate(lengths):
+        pallas = np.asarray(jdecode(jnp.asarray(q[i:i + 1]), jnp.asarray(k[i:i + 1]),
+                                    jnp.asarray(v[i:i + 1]), jnp.int32(n), bs=64))
+        np.testing.assert_allclose(out[i:i + 1], pallas, atol=ATOL, rtol=RTOL)
+    assert np.all(out[3] == 0)
+    # garbage (non-finite) cache entries past the length are never read
+    k[:, 100:], v[:, 100:] = np.nan, np.inf
+    again = ref.decode_attention_ref(_t(q), _t(k), _t(v), torch.from_numpy(lengths)).numpy()
+    np.testing.assert_array_equal(again[:2], out[:2])
+
+
+def test_decode_bf16_ref_rounds_once_at_the_output():
+    rng = np.random.default_rng(11)
+    qb, kb, vb = (jnp.asarray(_randn(rng, sh), jnp.bfloat16)
+                  for sh in ((2, 24, 128), (2, 96, 2, 128), (2, 96, 2, 128)))
+    pallas = np.asarray(jdecode(qb, kb, vb, jnp.int32(90), bs=32), np.float32)
+    tb = [_t(np.asarray(t, np.float32), dtype=torch.bfloat16) for t in (qb, kb, vb)]
+    out = ref.decode_attention_ref(*tb, 90)
+    assert out.dtype == torch.bfloat16
+    np.testing.assert_allclose(out.float().numpy(), pallas, atol=2e-2)
+
+
+def test_decode_wrapper_uses_plain_version_on_cpu():
+    rng = np.random.default_rng(12)
+    q, k, v = _t(_randn(rng, (2, 4, 16))), _t(_randn(rng, (2, 40, 2, 16))), \
+        _t(_randn(rng, (2, 40, 2, 16)))
+    before = decode_mod.launches
+    exp = ref.decode_attention_ref(q, k, v, torch.tensor([9, 9], dtype=torch.int32))
+    for lengths in (9, torch.tensor(9), torch.tensor([9, 9], dtype=torch.int32)):
+        assert torch.equal(decode_mod.decode_attention(q, k, v, lengths), exp)
+    with ops.plain_versions():
+        assert torch.equal(ops.decode_attention(q, k, v, 9), exp)
+    assert decode_mod.launches == before  # plain versions launch nothing
+
+
+@pytest.mark.parametrize("b,hq,hkv,s,expect", [
+    (8, 24, 2, 2048, 32), (8, 24, 2, 8192, 33), (1, 24, 2, 32768, 264),
+    (1, 40, 2, 64, 1), (2, 4, 2, 100, 2),
+])
+def test_decode_split_count_follows_the_shapes(b, hq, hkv, s, expect):
+    """Enough blocks for the card (about 4 per SM), no more splits than
+    tiles of capacity; groups above 16 heads take several head tiles."""
+    assert decode_mod.n_splits(b, hq, hkv, s) == expect

@@ -219,8 +219,9 @@ def test_attention_and_metric_match_reference(fused_qkv):
     jbp = jvit.layer_params(jp, 0)
     ja, _, jm = JL.attention(jbp["attn"], jnp.asarray(x), n_heads=2, n_kv=2, head_dim=16,
                              bias=jnp.asarray(bias), return_metric=True)
-    ta, tm = L.attention(vit.layer_params(tp, 0)["attn"], torch.from_numpy(x), n_heads=2,
-                         head_dim=16, bias=torch.from_numpy(bias), return_metric=True)
+    ta, _, tm = L.attention(vit.layer_params(tp, 0)["attn"], torch.from_numpy(x), n_heads=2,
+                            n_kv=2, head_dim=16, bias=torch.from_numpy(bias),
+                            return_metric=True)
     np.testing.assert_allclose(ta.numpy(), np.asarray(ja), atol=1e-5)
     np.testing.assert_allclose(tm.numpy(), np.asarray(jm), atol=1e-6)
     assert tm.shape == (2, 50, 16)
