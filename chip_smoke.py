@@ -13,30 +13,38 @@ each failing the run on any failed check:
             and prints each kernel's ptxas registers, spills and shared memory;
 3. kernels: each kernel against its plain PyTorch version on the card at the
             main paths' shapes, and timed beside its plain version, one
-            library call computing the same function, and its bound
-            (flash_attention at the ViT shapes and at the LM prefill shape,
-            decode_attention at the LM decode shape and two longer caches);
+            library call computing the same function, and its bound. Flash
+            attention has two kernels, chosen by (dtype, head dim): the
+            tensor-core one (bf16 at D 64 and 128) and the CUDA-core one (f32,
+            and bf16 at D 16 and 32); both are timed at ViT B=1, ViT B=8 and
+            the LM prefill shape, the CUDA-core one also in bf16 beside the
+            tensor-core one. decode_attention at the LM decode shape and two
+            longer caches;
 4. path:    ViT-L@384 bf16 (random weights from a seeded generator) serves a
             6-frame 4G-driving trace through ``JanusEngine(execute=True)`` and
             one split inference at α=0.5, mid split; the kernels' launch
-            counters are zeroed just before and read just after;
+            counters are zeroed just before and read just after, and every
+            flash launch must be the tensor-core kernel's (168);
 5. batch:   ``run_cloud_batch`` on 8 mixed-α plans at a shared split, exact
             and bucketed, which must agree; the launch counters are zeroed
             before each and must show the counts the stacked forwards imply;
    trace:   torch.profiler over one device partition and one cloud batch:
             kernel time on the card, idle share, top kernels;
 6. parity:  ViT-L@384 in f32, ``vit.forward_janus`` through the kernels
-            against the plain path on the card: logits within tolerance and
-            identical merge indices per merge layer;
+            (flash on the CUDA-core kernel, counted) against the plain path
+            on the card: logits within tolerance and identical merge indices
+            per merge layer;
 7. lm:      starcoder2-3b bf16 at full width and depth (random weights from
             a seeded generator) serves 8 prompts of 1024 tokens through
             ``lm.prefill`` and 64 greedy ``lm.decode_step``s on a cache of
             capacity 2048; the launch counters are zeroed just before and
-            read just after (flash 30, decode 1920, tome_scores 0);
+            read just after (flash 30, all on the tensor-core kernel,
+            decode 1920, tome_scores 0);
    lm trace: torch.profiler over one decode step and over the prefill;
 8. lm parity: starcoder2-3b in f32, prefill of 2 x 256 tokens and 8
-            teacher-forced decode steps through the kernels against the
-            plain versions on the card: logits within tolerance at every step.
+            teacher-forced decode steps through the kernels (counted) against
+            the plain versions on the card: logits within tolerance at every
+            step.
 
 The line before the last is the kernels JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without a card, or outside a checkout, it
@@ -106,25 +114,29 @@ def main() -> int:
     for name in _build.SOURCES:
         for line in ptxas_summary(_build.build_log(name)):
             print(f"[build] {name}: {line}")
+    mma_lines = ptxas_summary(_build.build_log("flash_attention_mma"))
+    check(len(mma_lines) == 2 and all(" 0 B spill stores, 0 B spill loads" in line
+                                      for line in mma_lines),
+          "the tensor-core flash kernel spills (or ptxas printed no line for it)")
 
     from repro_torch.runtime.device import parity_numerics
     parity_numerics()  # f32 plain versions and f32 phases must not use TF32
     rows = kernel_phase(torch) + [decode_kernel_phase(torch)]
     model = _vit_l(torch, torch.bfloat16)
-    path_counts = path_phase(torch, *model)
-    batch_phase(torch, *model)
+    paths = {"vit": path_phase(torch, *model), "vit_batch": batch_phase(torch, *model)}
     trace_phase(torch, *model)
     del model
-    parity_phase(torch)
+    paths["vit_f32_parity"] = parity_phase(torch)
     torch.cuda.empty_cache()
-    lm_counts = lm_phase(torch)
+    paths["lm"] = lm_phase(torch)
     torch.cuda.empty_cache()
-    lm_parity_phase(torch)
+    paths["lm_f32_parity"] = lm_parity_phase(torch)
 
     for row in rows:
         name = row["name"]
-        row["launches"] = path_counts[name] + lm_counts[name]
-        row["path_launches"] = {"vit": path_counts[name], "lm": lm_counts[name]}
+        row["path_launches"] = {path: counts[name] for path, counts in paths.items()}
+        row["launches"] = sum(row["path_launches"].values())
+        check(row["launches"] > 0, f"{name} was launched on no path")
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -153,19 +165,20 @@ def ptxas_summary(log: str) -> list[str]:
     return out
 
 
-def counters():
-    from repro_torch.kernels import decode_attention, flash_attention, tome_scores
-    return {"flash_attention": flash_attention, "tome_scores": tome_scores,
-            "decode_attention": decode_attention}
-
-
 def zero_counts() -> None:
-    for mod in counters().values():
+    from repro_torch.kernels import decode_attention, flash_attention, tome_scores
+    for mod in (decode_attention, flash_attention, tome_scores):
         mod.launches = 0
+    flash_attention.launches_mma = 0
 
 
 def read_counts() -> dict[str, int]:
-    return {name: mod.launches for name, mod in counters().items()}
+    """Launches per kernel since ``zero_counts``; the flash wrapper's total
+    splits into its tensor-core and CUDA-core kernels."""
+    from repro_torch.kernels import decode_attention, flash_attention, tome_scores
+    return {"flash_attention_mma": flash_attention.launches_mma,
+            "flash_attention": flash_attention.launches - flash_attention.launches_mma,
+            "tome_scores": tome_scores.launches, "decode_attention": decode_attention.launches}
 
 
 def time_ms(torch, fn, iters: int = 30) -> float:
@@ -187,6 +200,20 @@ def bound(flops: float, nbytes: float, peak: float) -> tuple[float, str]:
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def cuda_core_flash(torch, flash_mod, q, k, v, bias, causal):
+    """The CUDA-core flash kernel on a bf16 call that ``kernel_for`` routes to
+    the tensor-core one: its C entry called directly, for a side-by-side time
+    in one run (not counted; never on a path)."""
+    b, h, sq, d = q.shape
+    out = torch.empty_like(q)
+    err = flash_mod._fn(flash_mod.CUDA_CORE)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), None if bias is None else bias.data_ptr(),
+        None, out.data_ptr(), b, h, sq, k.shape[2], d, 1, int(causal),
+        torch.cuda.current_stream().cuda_stream)
+    check(err == 0, f"CUDA-core flash kernel launch failed: cudaError {err}")
+    return out
+
+
 # --------------------------------------------------------------------- kernels
 
 def kernel_phase(torch) -> list[dict]:
@@ -198,37 +225,113 @@ def kernel_phase(torch) -> list[dict]:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     h, s, d = 16, 577, 64
-    flash_err = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    flash_err = {flash_mod.MMA: 0.0, flash_mod.CUDA_CORE: 0.0}
 
-    def flash_case(label, b, dtype, sq=s, sk=s, pads=0, kv=False, causal=False, h=h, d=d):
+    def flash_inputs(b, dtype, sq=s, sk=s, pads=0, h=h, d=d):
         q = torch.randn((b, h, sq, d), generator=gen, device=dev).to(dtype)
         k, v = (torch.randn((b, h, sk, d), generator=gen, device=dev).to(dtype) for _ in "kv")
         sizes = torch.randint(1, 5, (b, sk), generator=gen, device=dev).float()
         if pads:
             sizes[:, sk - pads:] = 0.0  # bucket pads: log(0) = -inf
-        bias = torch.log(sizes)
-        kv_len = torch.randint(sk // 2, sk + 1, (b,), generator=gen, device=dev,
-                               dtype=torch.int32) if kv else None
-        out = flash_mod.flash_attention(q, k, v, bias=bias, kv_len=kv_len, causal=causal)
-        exp = ref.flash_attention_ref(q, k, v, bias=bias, kv_len=kv_len, causal=causal)
+        return q, k, v, torch.log(sizes)
+
+    def flash_case(label, b, dtype, sq=s, sk=s, pads=0, kv=False, causal=False, h=h, d=d,
+                   with_bias=True):
+        q, k, v, bias = flash_inputs(b, dtype, sq, sk, pads, h, d)
+        kv_len = None
+        if kv:  # random lengths, the first member fully masked
+            kv_len = torch.randint(sk // 2, sk + 1, (b,), generator=gen, device=dev,
+                                   dtype=torch.int32)
+            kv_len[0] = 0
+        kw = dict(bias=bias if with_bias else None, kv_len=kv_len, causal=causal)
+        kernel = flash_mod.kernel_for(dtype, d)
+        before = flash_mod.launches_mma
+        out = flash_mod.flash_attention(q, k, v, **kw)
+        exp = ref.flash_attention_ref(q, k, v, **kw)
         torch.cuda.synchronize()
+        check((flash_mod.launches_mma - before) == (kernel == flash_mod.MMA),
+              f"flash_attention {label} ran on another kernel than {kernel}")
         tol = FLASH_F32 if dtype == torch.float32 else FLASH_BF16
         err = (out.float() - exp.float()).abs().max().item()
-        flash_err[dtype] = max(flash_err[dtype], err)
+        flash_err[kernel] = max(flash_err[kernel], err)
         ok = bool(torch.isfinite(out).all()) and torch.allclose(out.float(), exp.float(), **tol)
-        print(f"[kernels] flash_attention {label}: B={b} H={h} Sq={sq} Sk={sk} D={d} "
+        if kv:
+            ok = ok and bool(torch.all(out[0] == 0))
+        print(f"[kernels] {kernel} {label}: B={b} H={h} Sq={sq} Sk={sk} D={d} "
               f"{str(dtype)[6:]} max_abs_err={err:.3e} tol={tol} {'ok' if ok else 'FAIL'}")
         check(ok, f"flash_attention {label} disagrees with its plain version")
-        return q, k, v, bias
 
     for b in (1, 8):
         for dtype in (torch.bfloat16, torch.float32):
             flash_case("prop-attn bias", b, dtype)
     flash_case("bucket pads (-inf bias)", 8, torch.bfloat16, sq=592, sk=592, pads=15)
-    flash_case("kv_len", 8, torch.bfloat16, kv=True)
-    flash_case("causal", 2, torch.float32, sq=300, sk=577, causal=True)
-    for dtype in (torch.bfloat16, torch.float32):  # starcoder2-3b prefill: 24 heads of 128
-        flash_case("LM prefill causal", 8, dtype, sq=1024, sk=1024, causal=True, h=24, d=128)
+    for dtype in (torch.bfloat16, torch.float32):
+        flash_case("kv_len, one member 0", 8, dtype, kv=True)
+        flash_case("causal Sq<Sk", 2, dtype, sq=300, sk=577, causal=True)
+        flash_case("causal Sq>Sk", 2, dtype, sq=577, sk=300, causal=True)
+        flash_case("ragged Sq=577 Sk=7", 2, dtype, sq=577, sk=7, pads=2)
+        flash_case("ragged Sq=7 Sk=200 D=128", 2, dtype, sq=7, sk=200, h=4, d=128, kv=True)
+        # starcoder2-3b prefill: 24 heads of 128
+        flash_case("LM prefill causal", 8, dtype, sq=1024, sk=1024, causal=True, h=24, d=128,
+                   with_bias=False)
+    flash_case("small head dim", 2, torch.bfloat16, h=4, d=32)
+
+    # timings at the paths' calls: a ViT frame (B=1) and the cloud batch of 8
+    # frames, with the bias; the LM prefill, causal
+    def flash_timings(kernel, dtype) -> list[dict]:
+        out = []
+        for label, b, hh, ss, dd, causal in (("ViT B=1", 1, h, s, d, False),
+                                             ("ViT B=8", 8, h, s, d, False),
+                                             ("LM prefill", 8, 24, 1024, 128, True)):
+            q, k, v, bias = flash_inputs(b, dtype, ss, ss, 0, hh, dd)
+            bias = None if causal else bias
+            check(flash_mod.kernel_for(dtype, dd) == kernel, f"{kernel} timing route")
+            iters = 10 if causal else 30
+            ms = time_ms(torch, lambda: flash_mod.flash_attention(q, k, v, bias=bias,
+                                                                  causal=causal), iters)
+            plain = time_ms(torch, lambda: ref.flash_attention_ref(q, k, v, bias=bias,
+                                                                   causal=causal), iters)
+            mask = None if bias is None else bias[:, None, None, :].to(q.dtype)
+            lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask, is_causal=causal), iters)
+            # causal: S * (S + 1) / 2 (query, key) pairs of 4 * D flops
+            pairs = ss * (ss + 1) / 2 if causal else ss * ss
+            nbytes = 4 * q.numel() * q.element_size() + (0 if bias is None else bias.numel() * 4)
+            b_ms, b_by = bound(4.0 * b * hh * dd * pairs, nbytes,
+                               PEAK_BF16 if dtype == torch.bfloat16 else PEAK_F32)
+            row = dict(shape=f"{label}: q,k,v [{b},{hh},{ss},{dd}] {str(dtype)[6:]}"
+                             + (", causal" if causal else f", bias [{b},{ss}]"),
+                       ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms, bound_by=b_by)
+            extra = ""
+            if kernel == flash_mod.MMA:  # the CUDA-core kernel on the same bf16 call
+                row["cuda_core_ms"] = time_ms(torch, lambda: cuda_core_flash(
+                    torch, flash_mod, q, k, v, bias, causal), 10)
+                extra = f", CUDA-core kernel {row['cuda_core_ms']:.4f} ms"
+            print(f"[kernels] {kernel} {row['shape']} timing: kernel {ms:.4f} ms, plain "
+                  f"{plain:.4f} ms, sdpa {lib:.4f} ms ({ms / lib:.2f}x), bound {b_ms:.4f} ms "
+                  f"({b_by}){extra}")
+            out.append(row)
+            del q, k, v, bias, mask
+        return out
+
+    rows = []
+    for kernel, dtype, source in ((flash_mod.MMA, torch.bfloat16, "flash_attention_mma.cu"),
+                                  (flash_mod.CUDA_CORE, torch.float32, "flash_attention.cu")):
+        timings = flash_timings(kernel, dtype)
+        vit8 = timings[1]
+        rows.append(dict(
+            name=kernel, route="cuda", source=f"src/repro_torch/kernels/csrc/{source}",
+            replaces="src/repro/kernels/flash_attention.py:90",
+            serves="bf16 at D 64, 128" if kernel == flash_mod.MMA
+            else "f32 at D 16-128, bf16 at D 16, 32",
+            max_abs_err=flash_err[kernel], max_err=flash_err[kernel],
+            tol={"f32": FLASH_F32, "bf16": FLASH_BF16},
+            ms=vit8["ms"], kernel_ms=vit8["ms"], plain_ms=vit8["plain_ms"],
+            library_ms=vit8["library_ms"],
+            library="torch.nn.functional.scaled_dot_product_attention (attn_mask=bias, or "
+                    "is_causal=True)",
+            bound_ms=vit8["bound_ms"], bound_us=vit8["bound_ms"] * 1e3,
+            bound_by=vit8["bound_by"], shape=vit8["shape"], timings=timings))
 
     tome_err = 0.0
 
@@ -260,46 +363,6 @@ def kernel_phase(torch) -> list[dict]:
             err, a, bb = tome_case(b, nb_len)
             tome_err = max(tome_err, err)
 
-    # timings at the main path's largest calls: the cloud batch of 8 frames
-    rows = []
-    for b in (1, 8):
-        q, k, v, bias = flash_case("timed", b, torch.bfloat16)
-        mask = bias[:, None, None, :].to(q.dtype)
-        ms = time_ms(torch, lambda: flash_mod.flash_attention(q, k, v, bias=bias))
-        plain = time_ms(torch, lambda: ref.flash_attention_ref(q, k, v, bias=bias))
-        lib = time_ms(torch, lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask))
-        flops = 4.0 * b * h * s * s * d
-        nbytes = 4 * q.numel() * q.element_size() + bias.numel() * 4
-        b_ms, b_by = bound(flops, nbytes, PEAK_BF16)
-        print(f"[kernels] flash_attention B={b} bf16 timing: kernel {ms:.4f} ms, plain "
-              f"{plain:.4f} ms, sdpa {lib:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
-    # the LM prefill's call: B=8, 24 heads, 1024 tokens, D=128, causal
-    q, k, v, _ = flash_case("LM prefill timed", 8, torch.bfloat16, sq=1024, sk=1024,
-                            causal=True, h=24, d=128)
-    p_ms = time_ms(torch, lambda: flash_mod.flash_attention(q, k, v, causal=True), iters=10)
-    p_plain = time_ms(torch, lambda: ref.flash_attention_ref(q, k, v, causal=True), iters=10)
-    p_lib = time_ms(torch, lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True),
-                    iters=10)
-    # causal: 1024 * 1025 / 2 (query, key) pairs of 4 * D flops
-    p_bound, p_by = bound(4.0 * 8 * 24 * 128 * 1024 * 1025 / 2,
-                          4 * q.numel() * q.element_size(), PEAK_BF16)
-    print(f"[kernels] flash_attention LM prefill B=8 H=24 S=1024 D=128 causal bf16 timing: "
-          f"kernel {p_ms:.4f} ms, plain {p_plain:.4f} ms, sdpa(is_causal) {p_lib:.4f} ms, "
-          f"bound {p_bound:.4f} ms ({p_by})")
-    del q, k, v
-    rows.append(dict(
-        name="flash_attention", route="cuda",
-        source="src/repro_torch/kernels/csrc/flash_attention.cu",
-        replaces="src/repro/kernels/flash_attention.py:90",
-        max_abs_err=max(flash_err.values()), max_err=max(flash_err.values()),
-        tol={"f32": FLASH_F32, "bf16": FLASH_BF16},
-        ms=ms, kernel_ms=ms, plain_ms=plain, library_ms=lib,
-        library="torch.nn.functional.scaled_dot_product_attention(attn_mask=bias)",
-        bound_ms=b_ms, bound_us=b_ms * 1e3, bound_by=b_by,
-        shape="ViT cloud batch: q,k,v [8,16,577,64] bf16, bias [8,577]",
-        lm_prefill=dict(shape="q,k,v [8,24,1024,128] bf16, causal", ms=p_ms, plain_ms=p_plain,
-                        library_ms=p_lib, bound_ms=p_bound, bound_by=p_by,
-                        library="scaled_dot_product_attention(is_causal=True)")))
     for b in (1, 8):
         _, a, bb = tome_case(b, False)
         ms = time_ms(torch, lambda: tome_mod.tome_scores(a, bb))
@@ -496,11 +559,13 @@ def path_phase(torch, cfg, params, images) -> dict[str, int]:
     check(bool(torch.isfinite(logits.float()).all()), "non-finite split_inference logits")
     exp_flash = cfg.n_layers * (len(stats.frames) + 1)
     exp_tome = sum(_merge_layers(cfg, f.alpha) for f in stats.frames) + _merge_layers(cfg, 0.5)
-    print(f"[path] launches: flash_attention={counts['flash_attention']} "
-          f"(schedule implies {exp_flash}), tome_scores={counts['tome_scores']} "
-          f"(schedule implies {exp_tome}), decode_attention={counts['decode_attention']}; "
+    print(f"[path] launches: flash_attention_mma={counts['flash_attention_mma']}, CUDA-core "
+          f"flash_attention={counts['flash_attention']} (schedule implies {exp_flash} bf16 "
+          f"calls, all tensor-core), tome_scores={counts['tome_scores']} (schedule implies "
+          f"{exp_tome}), decode_attention={counts['decode_attention']}; "
           f"plan cache traces={eng.plan_cache.traces_by_kind}")
-    check(counts["flash_attention"] == exp_flash > 0, "flash_attention launch count")
+    check(counts["flash_attention_mma"] == exp_flash > 0, "flash_attention_mma launch count")
+    check(counts["flash_attention"] == 0, "the bf16 ViT path launched the CUDA-core flash kernel")
     check(counts["tome_scores"] == exp_tome > 0, "tome_scores launch count")
     check(counts["decode_attention"] == 0, "the ViT path launched decode_attention")
     return counts
@@ -508,12 +573,10 @@ def path_phase(torch, cfg, params, images) -> dict[str, int]:
 
 # ----------------------------------------------------------------------- batch
 
-def batch_phase(torch, cfg, params, images) -> None:
+def batch_phase(torch, cfg, params, images) -> dict[str, int]:
     from repro_torch.configs import janus_vit_l384
     from repro_torch.core import engine, planner, pruning
     from repro_torch.core.bucketing import BucketingConfig, BucketTable
-    from repro_torch.kernels import flash_attention as flash_mod
-    from repro_torch.kernels import tome_scores as tome_mod
     from repro_torch.launch.serve import make_profile
 
     split = 18
@@ -538,26 +601,32 @@ def batch_phase(torch, cfg, params, images) -> None:
     per_forward = (cfg.n_layers - split, sum(1 for r in exact[0].schedule[split:] if r > 0))
 
     def check_launches(label, n_forwards):
-        got = (flash_mod.launches, tome_mod.launches)
+        got = read_counts()
         exp = (per_forward[0] * n_forwards, per_forward[1] * n_forwards)
-        print(f"[batch] {label} launches: flash_attention={got[0]}, tome_scores={got[1]} "
-              f"({n_forwards} stacked forwards imply {exp[0]}, {exp[1]})")
-        check(got == exp and exp[0] > 0 and exp[1] > 0, f"{label} cloud batch launch counts")
+        print(f"[batch] {label} launches: flash_attention_mma={got['flash_attention_mma']}, "
+              f"CUDA-core flash_attention={got['flash_attention']}, tome_scores="
+              f"{got['tome_scores']} ({n_forwards} stacked forwards imply {exp[0]} bf16 flash "
+              f"calls, all tensor-core, and {exp[1]})")
+        check((got["flash_attention_mma"], got["tome_scores"]) == exp and exp[0] > 0
+              and exp[1] > 0 and got["flash_attention"] == got["decode_attention"] == 0,
+              f"{label} cloud batch launch counts")
+        return got
 
-    flash_mod.launches = tome_mod.launches = 0
+    zero_counts()
     t0 = time.perf_counter()
     engine.run_cloud_batch(c_exact, cfg, params, exact)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    check_launches("exact", len({(p.schedule, tuple(p.x.shape[1:])) for p in exact}))
+    counts = check_launches("exact", len({(p.schedule, tuple(p.x.shape[1:])) for p in exact}))
     bucketed = plans()
     torch.cuda.synchronize()
     t2 = time.perf_counter()
-    flash_mod.launches = tome_mod.launches = 0
+    zero_counts()
     engine.run_cloud_batch(c_bucket, cfg, params, bucketed, buckets=table)
     torch.cuda.synchronize()
     t3 = time.perf_counter()
-    check_launches("bucketed", len({table.edge_for(split, p.x.shape[1]) for p in bucketed}))
+    bucket_counts = check_launches("bucketed",
+                                   len({table.edge_for(split, p.x.shape[1]) for p in bucketed}))
     err = max((p.logits.float() - q.logits.float()).abs().max().item()
               for p, q in zip(exact, bucketed))
     ok = all(torch.allclose(p.logits.float(), q.logits.float(), **BATCH_BF16)
@@ -570,6 +639,7 @@ def batch_phase(torch, cfg, params, images) -> None:
           f"max|bucketed-exact|={err:.3e} tol={BATCH_BF16} {'ok' if ok else 'FAIL'}")
     check(ok, "bucketed cloud batch disagrees with the exact one")
     check(n_padded <= len(edges), "cloud_padded traces exceed the edge count")
+    return {name: counts[name] + bucket_counts[name] for name in counts}
 
 
 # ----------------------------------------------------------------------- trace
@@ -625,7 +695,7 @@ def profile_once(torch, label: str, fn) -> None:
 
 # ---------------------------------------------------------------------- parity
 
-def parity_phase(torch) -> None:
+def parity_phase(torch) -> dict[str, int]:
     from repro_torch.core import pruning, tome
     from repro_torch.kernels import ops
     from repro_torch.models import vit
@@ -654,7 +724,9 @@ def parity_phase(torch) -> None:
         return logits, record
 
     t0 = time.perf_counter()
+    zero_counts()
     logits_k, rec_k = forward_recording()
+    counts = read_counts()
     with ops.plain_versions():
         logits_p, rec_p = forward_recording()
     torch.cuda.synchronize()
@@ -678,7 +750,13 @@ def parity_phase(torch) -> None:
           f"max|dlogits|={err:.3e} tol={PARITY_F32}, merge indices identical at "
           f"{len(merge_layers) - len(flips)}/{len(merge_layers)} merge layers, "
           f"{time.perf_counter() - t0:.1f} s {'ok' if ok else 'FAIL'}")
+    n_merge = len(merge_layers)
+    print(f"[parity] launches of the kernel run: {counts} (implies CUDA-core flash "
+          f"{cfg.n_layers}, tome_scores {n_merge})")
     check(ok, "f32 whole-path parity failed")
+    check(counts == {"flash_attention_mma": 0, "flash_attention": cfg.n_layers,
+                     "tome_scores": n_merge, "decode_attention": 0}, "f32 ViT launch counts")
+    return counts
 
 
 # -------------------------------------------------------------------------- lm
@@ -742,8 +820,8 @@ def lm_phase(torch) -> dict[str, int]:
           f"{steps[len(steps) // 2]:.2f} ms, max {steps[-1]:.2f} ms, first {step_ms[0]:.2f} ms; "
           f"{LM_BATCH * LM_STEPS / sum(step_ms) * 1e3:.1f} generated tokens/s")
     print(f"[lm] weights {weights_gb:.3f} GB, max_memory_allocated {peak_gb:.3f} GB")
-    exp = {"flash_attention": cfg.n_layers, "decode_attention": cfg.n_layers * LM_STEPS,
-           "tome_scores": 0}
+    exp = {"flash_attention_mma": cfg.n_layers, "flash_attention": 0,
+           "decode_attention": cfg.n_layers * LM_STEPS, "tome_scores": 0}
     print(f"[lm] launches: {counts} (prefill and {LM_STEPS} steps imply {exp})")
     check(tuple(logits.shape) == (LM_BATCH, 1, cfg.vocab), "decode logits shape")
     check(bool(torch.stack(finite).all()), "non-finite LM logits")
@@ -757,7 +835,7 @@ def lm_phase(torch) -> dict[str, int]:
     return counts
 
 
-def lm_parity_phase(torch) -> None:
+def lm_parity_phase(torch) -> dict[str, int]:
     """starcoder2-3b in f32 on the card, through the kernels against the
     plain versions: prefill of 2 x 256 tokens, then 8 teacher-forced decode
     steps (both runs get the same tokens, so a near-tie cannot make them
@@ -780,7 +858,9 @@ def lm_parity_phase(torch) -> None:
         return out, cache
 
     t0 = time.perf_counter()
+    zero_counts()
     lk, ck = run()
+    counts = read_counts()
     with ops.plain_versions():
         lp, cp = run()
     torch.cuda.synchronize()
@@ -793,7 +873,12 @@ def lm_parity_phase(torch) -> None:
           f"decode steps {' '.join(f'{e:.2e}' for e in errs[1:])}, max|dcache| "
           f"{cache_err:.3e}, tol={PARITY_F32}, |logits| max {lp[-1].abs().max().item():.2f}, "
           f"{time.perf_counter() - t0:.1f} s {'ok' if ok else 'FAIL'}")
+    exp = {"flash_attention_mma": 0, "flash_attention": cfg.n_layers,
+           "decode_attention": cfg.n_layers * steps, "tome_scores": 0}
+    print(f"[lm parity] launches of the kernel run: {counts} (implies {exp})")
     check(ok, "f32 LM parity failed")
+    check(counts == exp, "f32 LM launch counts")
+    return counts
 
 
 if __name__ == "__main__":

@@ -116,16 +116,121 @@ def test_flash_bf16_ref_rounds_once_at_the_output():
     np.testing.assert_allclose(out.float().numpy(), pallas, atol=2e-2)
 
 
+@pytest.mark.parametrize("dtype,d,kernel", [
+    (torch.bfloat16, 64, flash_mod.MMA), (torch.bfloat16, 128, flash_mod.MMA),
+    (torch.bfloat16, 16, flash_mod.CUDA_CORE), (torch.bfloat16, 32, flash_mod.CUDA_CORE),
+    (torch.float32, 16, flash_mod.CUDA_CORE), (torch.float32, 32, flash_mod.CUDA_CORE),
+    (torch.float32, 64, flash_mod.CUDA_CORE), (torch.float32, 128, flash_mod.CUDA_CORE),
+])
+def test_flash_kernel_for_routes_by_dtype_and_head_dim(dtype, d, kernel):
+    """bf16 at D 64 and 128 goes to the tensor-core kernel; f32 (which must
+    stay off TF32) and the small head dims to the CUDA-core kernel. Each name
+    is a source the build compiles."""
+    from repro_torch.kernels import _build
+    assert flash_mod.kernel_for(dtype, d) == kernel
+    assert kernel in _build.SOURCES
+
+
+@pytest.mark.parametrize("dtype,d,exc", [
+    (torch.float16, 64, TypeError), (torch.int32, 64, TypeError),
+    (torch.bfloat16, 24, ValueError), (torch.bfloat16, 256, ValueError),
+    (torch.float32, 96, ValueError),
+])
+def test_flash_kernel_for_raises_on_what_no_kernel_takes(dtype, d, exc):
+    with pytest.raises(exc):
+        flash_mod.kernel_for(dtype, d)
+
+
+LOG2E = 1.4426950408889634
+
+
+def _mma_emulation(q, k, v, *, bias=None, kv_len=None, causal=False, bk=64):
+    """The tensor-core kernel's arithmetic (``csrc/flash_attention_mma.cu``)
+    on the CPU: bf16 q, k, v; f32 scores in log2 units; an online softmax
+    over key tiles of ``bk``; the weights P rounded to bf16 before P.V, l
+    summed from the f32 weights; f32 accumulation; one bf16 rounding of the
+    output; rows with no unmasked key give 0."""
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    qf, kf, vf = q.float(), k.float(), v.float()
+    scale_log2 = torch.tensor(LOG2E / np.sqrt(d), dtype=torch.float32)
+    kend = torch.full((b,), sk) if kv_len is None else kv_len.long().clamp(0, sk)
+    bias2 = (torch.zeros((b, sk)) if bias is None
+             else bias.float().clamp_min(ref.NEG) * LOG2E)
+    qpos = torch.arange(sq)[:, None]
+    m = torch.full((b, h, sq, 1), ref.NEG)
+    l = torch.zeros((b, h, sq, 1))
+    o = torch.zeros((b, h, sq, d))
+    for t0 in range(0, sk, bk):
+        kpos = torch.arange(t0, min(t0 + bk, sk))
+        s = (torch.einsum("bhqd,bhkd->bhqk", qf, kf[:, :, t0:t0 + bk]) * scale_log2
+             + bias2[:, None, None, t0:t0 + bk])
+        ok = (kpos[None, :] < kend[:, None])[:, None, None, :]
+        if causal:
+            ok = ok & (kpos[None, :] <= qpos + (sk - sq))
+        s = torch.where(ok, s, torch.full_like(s, ref.NEG))
+        mn = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha, p = torch.exp2(m - mn), torch.exp2(s - mn)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        o = o * alpha + torch.einsum("bhqk,bhkd->bhqd", p.bfloat16().float(),
+                                     vf[:, :, t0:t0 + bk])
+        m = mn
+    out = torch.where(m > 0.5 * ref.NEG, o / l.clamp_min(1e-30), torch.zeros_like(o))
+    return out.bfloat16()
+
+
+@pytest.mark.parametrize("b,h,sq,sk,d,pads,kv_len,causal", [
+    (2, 2, 257, 257, 64, 7, None, False),        # S=257 of tests/test_kernels.py
+    (1, 2, 577, 577, 64, 15, None, False),       # ViT-L@384 tokens, bucket pads
+    (3, 2, 100, 100, 64, 0, (0, 100, 37), False),  # a fully masked member beside live ones
+    (2, 2, 130, 130, 128, 0, None, True),        # LM prefill's head dim, causal
+    (2, 2, 130, 77, 128, 0, None, True),         # causal with Sq > Sk: rows that see no key
+])
+def test_flash_mma_rounding_points_stay_inside_the_bf16_tolerance(b, h, sq, sk, d, pads,
+                                                                  kv_len, causal):
+    """The tensor-core kernel rounds P to bf16 before P.V, where the plain
+    version and the Pallas kernel keep f32 weights; the emulation of its
+    arithmetic agrees with both within the card tests' bf16 tolerance (atol
+    2e-2), and its fully masked rows are exactly 0."""
+    rng = np.random.default_rng(17)
+    q, k, v = (_t(_randn(rng, (b, h, s, d)), dtype=torch.bfloat16) for s in (sq, sk, sk))
+    sizes = 1.0 + rng.uniform(size=(b, sk))
+    if pads:
+        sizes[:, sk - pads:] = 0.0
+    with np.errstate(divide="ignore"):
+        bias = np.log(sizes).astype(np.float32)  # -inf on the padded tail
+    kvl = None if kv_len is None else torch.tensor(kv_len, dtype=torch.int32)
+    kw = dict(bias=_t(bias), kv_len=kvl, causal=causal)
+    emu = _mma_emulation(q, k, v, **kw)
+    plain = ref.flash_attention_ref(q, k, v, **kw)
+    assert emu.dtype == plain.dtype == torch.bfloat16
+    torch.testing.assert_close(emu.float(), plain.float(), atol=2e-2, rtol=0)
+    jkw = dict(bias=jnp.asarray(bias), causal=causal, bq=64, bk=64)
+    if kvl is not None:
+        jkw["kv_len"] = jnp.asarray(kvl.numpy())
+    jb = [jnp.asarray(t.float().numpy(), jnp.bfloat16) for t in (q, k, v)]
+    pallas = torch.from_numpy(np.asarray(jflash(*jb, **jkw), np.float32))
+    live = plain.float().abs().amax(-1) > 0  # the Pallas kernel averages V on empty rows
+    torch.testing.assert_close(emu.float()[live], pallas[live], atol=2e-2, rtol=0)
+    if kvl is not None:
+        assert torch.all(emu[0] == 0) and torch.all(plain[0] == 0)
+    if causal and sq > sk:
+        assert torch.all(emu[:, :, :sq - sk] == 0)
+
+
 def test_wrappers_use_plain_versions_on_cpu():
     rng = np.random.default_rng(2)
     q, k, v = (_t(_randn(rng, (1, 2, 33, 16))) for _ in range(3))
-    before = flash_mod.launches
+    before = flash_mod.launches, flash_mod.launches_mma
     assert torch.equal(flash_mod.flash_attention(q, k, v), ref.flash_attention_ref(q, k, v))
+    qb, kb, vb = (_t(_randn(rng, (1, 2, 33, 64)), dtype=torch.bfloat16) for _ in range(3))
+    assert torch.equal(flash_mod.flash_attention(qb, kb, vb, causal=True),
+                       ref.flash_attention_ref(qb, kb, vb, causal=True))
     a, b = _t(_randn(rng, (2, 9, 16))), _t(_randn(rng, (2, 8, 16)))
     m, i = tome_mod.tome_scores(a, b)
     mr, ir = ref.tome_scores_ref(a, b)
     assert torch.equal(m, mr) and torch.equal(i, ir)
-    assert flash_mod.launches == before  # plain versions launch nothing
+    assert (flash_mod.launches, flash_mod.launches_mma) == before  # plain versions launch nothing
     with ops.plain_versions():
         assert torch.equal(ops.flash_attention(q, k, v), ref.flash_attention_ref(q, k, v))
 
