@@ -11,6 +11,7 @@ each failing the run on any failed check:
 1. device:  the card's name and power limit (nvidia-smi) and torch's name;
 2. build:   nvcc builds every kernel library from ``src/repro_torch/kernels/csrc``
             and prints each kernel's ptxas registers, spills and shared memory;
+            the tensor-core kernels and tome_scores must not spill;
 3. kernels: each kernel against its plain PyTorch version on the card at the
             main paths' shapes, and timed beside its plain version, one
             library call computing the same function, and its bound. Flash
@@ -18,8 +19,15 @@ each failing the run on any failed check:
             tensor-core one (bf16 at D 64 and 128) and the CUDA-core one (f32,
             and bf16 at D 16 and 32); both are timed at ViT B=1, ViT B=8 and
             the LM prefill shape, the CUDA-core one also in bf16 beside the
-            tensor-core one. decode_attention at the LM decode shape and two
-            longer caches;
+            tensor-core one. tome_scores at B=1 and B=8. decode_attention has
+            two kernels too, chosen by dtype: the tensor-core one (bf16) and
+            the CUDA-core one (f32), both timed at the LM decode shape and two
+            longer caches, the CUDA-core one also in bf16 beside the
+            tensor-core one, and the tensor-core one also with the L2 flushed
+            before each call. tome_scores and decode_attention are timed with
+            the calls queued behind a sleep kernel (the card's time per call,
+            the host's per-call overhead hidden) and back to back as queued
+            by the host;
 4. path:    ViT-L@384 bf16 (random weights from a seeded generator) serves a
             6-frame 4G-driving trace through ``JanusEngine(execute=True)`` and
             one split inference at α=0.5, mid split; the kernels' launch
@@ -38,13 +46,13 @@ each failing the run on any failed check:
             a seeded generator) serves 8 prompts of 1024 tokens through
             ``lm.prefill`` and 64 greedy ``lm.decode_step``s on a cache of
             capacity 2048; the launch counters are zeroed just before and
-            read just after (flash 30, all on the tensor-core kernel,
-            decode 1920, tome_scores 0);
+            read just after (flash 30 and decode 1920, all on the tensor-core
+            kernels, tome_scores 0);
    lm trace: torch.profiler over one decode step and over the prefill;
 8. lm parity: starcoder2-3b in f32, prefill of 2 x 256 tokens and 8
-            teacher-forced decode steps through the kernels (counted) against
-            the plain versions on the card: logits within tolerance at every
-            step.
+            teacher-forced decode steps through the kernels (counted: flash 30
+            and decode 240, all on the CUDA-core kernels) against the plain
+            versions on the card: logits within tolerance at every step.
 
 The line before the last is the kernels JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without a card, or outside a checkout, it
@@ -114,14 +122,18 @@ def main() -> int:
     for name in _build.SOURCES:
         for line in ptxas_summary(_build.build_log(name)):
             print(f"[build] {name}: {line}")
-    mma_lines = ptxas_summary(_build.build_log("flash_attention_mma"))
-    check(len(mma_lines) == 2 and all(" 0 B spill stores, 0 B spill loads" in line
-                                      for line in mma_lines),
-          "the tensor-core flash kernel spills (or ptxas printed no line for it)")
+    # instantiations: flash_mma D 64/128; tome D 16/32/64/128; decode_mma the
+    # split and combine passes at D 64/128
+    for name, n_lines in (("flash_attention_mma", 2), ("tome_scores", 4),
+                          ("decode_attention_mma", 4)):
+        lines = ptxas_summary(_build.build_log(name))
+        check(len(lines) == n_lines and all(" 0 B spill stores, 0 B spill loads" in line
+                                            for line in lines),
+              f"{name} spills (or ptxas printed another number of lines for it)")
 
     from repro_torch.runtime.device import parity_numerics
     parity_numerics()  # f32 plain versions and f32 phases must not use TF32
-    rows = kernel_phase(torch) + [decode_kernel_phase(torch)]
+    rows = kernel_phase(torch) + decode_kernel_phase(torch)
     model = _vit_l(torch, torch.bfloat16)
     paths = {"vit": path_phase(torch, *model), "vit_batch": batch_phase(torch, *model)}
     trace_phase(torch, *model)
@@ -169,30 +181,93 @@ def zero_counts() -> None:
     from repro_torch.kernels import decode_attention, flash_attention, tome_scores
     for mod in (decode_attention, flash_attention, tome_scores):
         mod.launches = 0
-    flash_attention.launches_mma = 0
+    flash_attention.launches_mma = decode_attention.launches_mma = 0
 
 
 def read_counts() -> dict[str, int]:
-    """Launches per kernel since ``zero_counts``; the flash wrapper's total
-    splits into its tensor-core and CUDA-core kernels."""
+    """Launches per kernel since ``zero_counts``; the flash and decode
+    wrappers' totals split into their tensor-core and CUDA-core kernels."""
     from repro_torch.kernels import decode_attention, flash_attention, tome_scores
     return {"flash_attention_mma": flash_attention.launches_mma,
             "flash_attention": flash_attention.launches - flash_attention.launches_mma,
-            "tome_scores": tome_scores.launches, "decode_attention": decode_attention.launches}
+            "tome_scores": tome_scores.launches,
+            "decode_attention_mma": decode_attention.launches_mma,
+            "decode_attention": decode_attention.launches - decode_attention.launches_mma}
 
 
-def time_ms(torch, fn, iters: int = 30) -> float:
-    """Mean ms per call over ``iters`` back-to-back calls, CUDA events."""
+def time_ms(torch, fn, iters: int = 30, queued: bool = False) -> float:
+    """Mean ms per call over ``iters`` back-to-back calls, CUDA events.
+
+    With ``queued`` the calls are enqueued behind a sleep kernel that
+    outlasts the host's enqueueing, so the events time the card alone: the
+    host's per-call overhead (Python, allocation, the launch) is hidden. If
+    the sleep ended before the host had enqueued every call, it is doubled
+    and the run repeated."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
+    cycles = 20_000_000  # ~10 ms at the H100's clock
+    for _ in range(6):
+        if queued:
+            torch.cuda._sleep(cycles)
+            slept = torch.cuda.Event()
+            slept.record()
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        if not queued or not slept.query():  # the card was still asleep: all queued
+            end.synchronize()
+            return start.elapsed_time(end) / iters
+        end.synchronize()
+        cycles *= 2
+    fail("time_ms: the host could not queue the calls within the sleep")
+
+
+def device_us(torch, fn, iters: int = 20) -> dict[str, float]:
+    """Mean µs on the card per launch of each kernel that ``fn`` launches
+    (the port's by their names, others by a prefix), by torch.profiler over
+    ``iters`` calls after one warm call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    times: dict[str, list[float]] = {}
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA:
+            m = PORT_KERNEL.search(ev.name)
+            times.setdefault(m.group(0) if m else ev.name[:40], []).append(
+                ev.time_range.elapsed_us())
+    return {name: sum(ts) / len(ts) for name, ts in times.items()}
+
+
+def fmt_us(times: dict[str, float]) -> str:
+    return ", ".join(f"{name} {us:.2f} us" for name, us in times.items())
+
+
+def time_cold_ms(torch, fn, iters: int = 20, flush_mb: int = 256) -> float:
+    """Mean ms per call with the L2 cache flushed before each call: a
+    ``flush_mb`` MB buffer is written outside the timed events (that write
+    also outlasts the host's enqueueing of the call)."""
+    buf = torch.empty(flush_mb << 20, dtype=torch.uint8, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    events = []
     for _ in range(iters):
+        buf.fill_(1)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
         fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
+        end.record()
+        events.append((start, end))
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in events) / iters
 
 
 def bound(flops: float, nbytes: float, peak: float) -> tuple[float, str]:
@@ -211,6 +286,25 @@ def cuda_core_flash(torch, flash_mod, q, k, v, bias, causal):
         None, out.data_ptr(), b, h, sq, k.shape[2], d, 1, int(causal),
         torch.cuda.current_stream().cuda_stream)
     check(err == 0, f"CUDA-core flash kernel launch failed: cudaError {err}")
+    return out
+
+
+def cuda_core_decode(torch, decode_mod, q, k, v, lengths):
+    """The CUDA-core decode kernel on a bf16 call that ``kernel_for`` routes
+    to the tensor-core one, with its own split count: its C entry called
+    directly, for a side-by-side time in one run (not counted; never on a
+    path)."""
+    b, hq, d = q.shape
+    s, hkv = k.shape[1], k.shape[2]
+    nsplit = decode_mod.n_splits(b, hq, hkv, s, decode_mod.CUDA_CORE)
+    rows = b * hq * nsplit
+    part = torch.empty(rows * (d + 2), dtype=torch.float32, device=q.device)
+    out = torch.empty_like(q)
+    err = decode_mod._fn(decode_mod.CUDA_CORE)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(), part.data_ptr(),
+        part.data_ptr() + rows * d * 4, part.data_ptr() + rows * (d + 1) * 4, out.data_ptr(),
+        b, hq, hkv, s, d, nsplit, 1, torch.cuda.current_stream().cuda_stream)
+    check(err == 0, f"CUDA-core decode kernel launch failed: cudaError {err}")
     return out
 
 
@@ -363,45 +457,88 @@ def kernel_phase(torch) -> list[dict]:
             err, a, bb = tome_case(b, nb_len)
             tome_err = max(tome_err, err)
 
+    one = torch.zeros(1, device=dev)
+    floor = time_ms(torch, lambda: one.add_(1), queued=True)
+    print(f"[kernels] launch floor: a 1-element add, queued: {floor:.4f} ms")
+    tome_timings = []
     for b in (1, 8):
         _, a, bb = tome_case(b, False)
-        ms = time_ms(torch, lambda: tome_mod.tome_scores(a, bb))
-        plain = time_ms(torch, lambda: ref.tome_scores_ref(a, bb))
-        lib = time_ms(torch, lambda: torch.bmm(a, bb.transpose(1, 2)).max(-1))
+
+        def kernel():
+            return tome_mod.tome_scores(a, bb)
+
+        def library():
+            return torch.bmm(a, bb.transpose(1, 2)).max(-1)
+
+        ms, lib = time_ms(torch, kernel, queued=True), time_ms(torch, library, queued=True)
+        plain = time_ms(torch, lambda: ref.tome_scores_ref(a, bb), queued=True)
+        eager, lib_eager = time_ms(torch, kernel), time_ms(torch, library)
+        dev_us, lib_us = device_us(torch, kernel), device_us(torch, library)
+        b1 = bb[:, :1].contiguous()  # one column: what a call costs beside its FMAs
+        fixed_us = device_us(torch, lambda: tome_mod.tome_scores(a, b1))
         flops = 2.0 * b * 289 * 288 * d
         nbytes = (a.numel() + bb.numel()) * 4 + b * 289 * 8
         b_ms, b_by = bound(flops, nbytes, PEAK_F32)
-        print(f"[kernels] tome_scores B={b} f32 timing: kernel {ms:.4f} ms, plain "
-              f"{plain:.4f} ms, bmm+max {lib:.4f} ms, bound {b_ms:.6f} ms ({b_by})")
+        print(f"[kernels] tome_scores B={b} Na=289 Nb=288 D={d} f32 timing, queued: kernel "
+              f"{ms:.4f} ms, plain {plain:.4f} ms, bmm+max {lib:.4f} ms ({ms / lib:.2f}x), "
+              f"bound {b_ms:.6f} ms ({b_by}); back to back from the host: kernel {eager:.4f} "
+              f"ms, bmm+max {lib_eager:.4f} ms; on the card per launch (profiler): "
+              f"{fmt_us(dev_us)}; with Nb=1 {fmt_us(fixed_us)}; bmm+max {fmt_us(lib_us)}")
+        tome_timings.append(dict(shape=f"a [{b},289,{d}], b [{b},288,{d}] f32", ms=ms,
+                                 plain_ms=plain, library_ms=lib, bound_ms=b_ms, bound_by=b_by,
+                                 host_ms=eager, library_host_ms=lib_eager, device_us=dev_us,
+                                 nb1_device_us=fixed_us, library_device_us=lib_us))
+    b8 = tome_timings[1]
     rows.append(dict(
         name="tome_scores", route="cuda",
         source="src/repro_torch/kernels/csrc/tome_scores.cu",
         replaces="src/repro/kernels/tome_scores.py:49",
         max_abs_err=tome_err, max_err=tome_err,
         tol={"max": TOME_MAX, "argmax": "exact or equal score at the chosen index"},
-        ms=ms, kernel_ms=ms, plain_ms=plain, library_ms=lib,
-        library="torch.bmm(a, b.transpose(1, 2)).max(-1)",
-        bound_ms=b_ms, bound_us=b_ms * 1e3, bound_by=b_by))
+        ms=b8["ms"], kernel_ms=b8["ms"], plain_ms=b8["plain_ms"], library_ms=b8["library_ms"],
+        library="torch.bmm(a, b.transpose(1, 2)).max(-1)", timing="queued",
+        bound_ms=b8["bound_ms"], bound_us=b8["bound_ms"] * 1e3, bound_by=b8["bound_by"],
+        shape=b8["shape"], timings=tome_timings))
     return rows
 
 
-def decode_kernel_phase(torch) -> dict:
-    """decode_attention against its plain version (lengths 1, ragged inside a
-    tile, full; group 12 as starcoder2-3b and 2 as internlm2; D 64 and 128;
-    f32 and bf16), then timed at the LM path's last decode step and at two
-    longer caches, beside its plain version and SDPA with a length mask."""
+def decode_kernel_phase(torch) -> list[dict]:
+    """decode_attention's two kernels against the plain version (lengths 1,
+    ragged inside a tile, full; group 12 as starcoder2-3b and 2 as internlm2;
+    D 64 and 128): bf16 on the tensor-core kernel, f32 on the CUDA-core one.
+    Then each timed at the LM path's last decode step and at two longer
+    caches, beside the plain version and SDPA with a length mask; the
+    tensor-core one also beside the CUDA-core kernel on the same bf16 call
+    and, at the path's shape, with the L2 flushed before each call."""
     import torch.nn.functional as F
     from repro_torch.kernels import decode_attention as decode_mod
     from repro_torch.kernels import ref
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(3)
-    err_max = 0.0
+    err_max = {decode_mod.MMA: 0.0, decode_mod.CUDA_CORE: 0.0}
 
     def inputs(b, hq, hkv, s, d, dtype):
         q = torch.randn((b, hq, d), generator=gen, device=dev).to(dtype)
         k, v = (torch.randn((b, s, hkv, d), generator=gen, device=dev).to(dtype) for _ in "kv")
         return q, k, v
+
+    def checked(q, k, v, lengths, label):
+        kernel = decode_mod.kernel_for(q.dtype, q.shape[-1])
+        before = decode_mod.launches_mma
+        out = decode_mod.decode_attention(q, k, v, lengths)
+        exp = ref.decode_attention_ref(q, k, v, lengths)
+        torch.cuda.synchronize()
+        check((decode_mod.launches_mma - before) == (kernel == decode_mod.MMA),
+              f"decode_attention {label} ran on another kernel than {kernel}")
+        tol = DECODE_F32 if q.dtype == torch.float32 else DECODE_BF16
+        err = (out.float() - exp.float()).abs().max().item()
+        err_max[kernel] = max(err_max[kernel], err)
+        ok = bool(torch.isfinite(out).all()) and torch.allclose(out.float(), exp.float(), **tol)
+        print(f"[kernels] {kernel} {label}: max_abs_err={err:.3e} tol={tol} "
+              f"{'ok' if ok else 'FAIL'}")
+        check(ok, f"{kernel} disagrees with its plain version ({label})")
+        return kernel, exp
 
     s = 1500
     lengths = torch.tensor([1, 1061, s], dtype=torch.int32, device=dev)
@@ -409,64 +546,74 @@ def decode_kernel_phase(torch) -> dict:
         for hq, hkv in ((24, 2), (16, 8)):
             for d in (64, 128):
                 q, k, v = inputs(3, hq, hkv, s, d, dtype)
-                out = decode_mod.decode_attention(q, k, v, lengths)
-                exp = ref.decode_attention_ref(q, k, v, lengths)
-                torch.cuda.synchronize()
-                tol = DECODE_F32 if dtype == torch.float32 else DECODE_BF16
-                err = (out.float() - exp.float()).abs().max().item()
-                err_max = max(err_max, err)
-                ok = bool(torch.isfinite(out).all()) and torch.allclose(
-                    out.float(), exp.float(), **tol)
-                print(f"[kernels] decode_attention B=3 Hq={hq} Hkv={hkv} S={s} D={d} "
-                      f"lengths={lengths.tolist()} {str(dtype)[6:]} max_abs_err={err:.3e} "
-                      f"tol={tol} {'ok' if ok else 'FAIL'}")
-                check(ok, "decode_attention disagrees with its plain version")
+                checked(q, k, v, lengths, f"B=3 Hq={hq} Hkv={hkv} S={s} D={d} "
+                                          f"{str(dtype)[6:]} lengths={lengths.tolist()}")
 
-    timings = []
+    timings = {decode_mod.MMA: [], decode_mod.CUDA_CORE: []}
     for b, s, n in ((8, 2048, 1088), (8, 8192, 8192), (1, 32768, 32768)):
-        q, k, v = inputs(b, 24, 2, s, 128, torch.bfloat16)
-        lens = torch.full((b,), n, dtype=torch.int32, device=dev)
-        out = decode_mod.decode_attention(q, k, v, lens)
-        exp = ref.decode_attention_ref(q, k, v, lens)
-        kt, vt = (t.transpose(1, 2).contiguous() for t in (k, v))  # [B, Hkv, S, D]
-        mask = (torch.arange(s, device=dev) < lens[:, None])[:, None, None, :]
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v = inputs(b, 24, 2, s, 128, dtype)
+            lens = torch.full((b,), n, dtype=torch.int32, device=dev)
+            shape = f"q [{b},24,128], k/v [{b},{s},2,128] {str(dtype)[6:]}, length {n}"
+            kernel, exp = checked(q, k, v, lens, shape)
+            kt, vt = (t.transpose(1, 2).contiguous() for t in (k, v))  # [B, Hkv, S, D]
+            mask = (torch.arange(s, device=dev) < lens[:, None])[:, None, None, :]
 
-        def library():
-            return F.scaled_dot_product_attention(q[:, :, None], kt, vt, attn_mask=mask,
-                                                  enable_gqa=True)
+            def wrapper():
+                return decode_mod.decode_attention(q, k, v, lens)
 
-        lib_err = (library()[:, :, 0].float() - exp.float()).abs().max().item()
-        err = (out.float() - exp.float()).abs().max().item()
-        err_max = max(err_max, err)
-        check(torch.allclose(out.float(), exp.float(), **DECODE_BF16),
-              "decode_attention disagrees with its plain version at a timed shape")
-        ms = time_ms(torch, lambda: decode_mod.decode_attention(q, k, v, lens))
-        plain = time_ms(torch, lambda: ref.decode_attention_ref(q, k, v, lens))
-        lib = time_ms(torch, library)
-        # the valid cache read once, q read and the output written once
-        nbytes = 2 * b * n * 2 * 128 * 2 + 2 * q.numel() * 2 + b * 4
-        b_ms, b_by = bound(4.0 * b * 24 * n * 128, nbytes, PEAK_BF16)
-        print(f"[kernels] decode_attention B={b} Hq=24 Hkv=2 D=128 S={s} length={n} bf16 "
-              f"timing: kernel {ms:.4f} ms, plain {plain:.4f} ms, sdpa(enable_gqa, mask) "
-              f"{lib:.4f} ms (max|sdpa-plain|={lib_err:.2e}), bound {b_ms:.4f} ms "
-              f"({b_by}, {nbytes / 1e6:.1f} MB), splits {decode_mod.n_splits(b, 24, 2, s)}")
-        timings.append(dict(shape=f"q [{b},24,128], k/v [{b},{s},2,128] bf16, length {n}",
-                            ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
-                            bound_by=b_by, max_abs_err=err))
-        del q, k, v, kt, vt
-    path = timings[0]
-    return dict(
-        name="decode_attention", route="cuda",
-        source="src/repro_torch/kernels/csrc/decode_attention.cu",
-        replaces="src/repro/kernels/decode_attention.py:66",
-        max_abs_err=err_max, max_err=err_max,
-        tol={"f32": DECODE_F32, "bf16": DECODE_BF16},
-        ms=path["ms"], kernel_ms=path["ms"], plain_ms=path["plain_ms"],
-        library_ms=path["library_ms"],
-        library="torch.nn.functional.scaled_dot_product_attention(enable_gqa=True, "
-                "attn_mask=length mask)",
-        bound_ms=path["bound_ms"], bound_us=path["bound_ms"] * 1e3, bound_by=path["bound_by"],
-        shape=path["shape"], timings=timings)
+            def library():
+                return F.scaled_dot_product_attention(q[:, :, None], kt, vt, attn_mask=mask,
+                                                      enable_gqa=True)
+
+            lib_err = (library()[:, :, 0].float() - exp.float()).abs().max().item()
+            ms, lib = time_ms(torch, wrapper, queued=True), time_ms(torch, library, queued=True)
+            plain = time_ms(torch, lambda: ref.decode_attention_ref(q, k, v, lens), queued=True)
+            row = dict(shape=shape, ms=ms, plain_ms=plain, library_ms=lib,
+                       host_ms=time_ms(torch, wrapper), library_host_ms=time_ms(torch, library),
+                       device_us=device_us(torch, wrapper))
+            # the valid cache read once, q read and the output written once
+            nbytes = (2 * b * n * 2 * 128 + 2 * q.numel()) * q.element_size() + b * 4
+            row["bound_ms"], row["bound_by"] = bound(
+                4.0 * b * 24 * n * 128, nbytes,
+                PEAK_BF16 if dtype == torch.bfloat16 else PEAK_F32)
+            extra = ""
+            if kernel == decode_mod.MMA:  # the CUDA-core kernel on the same bf16 call
+                row["cuda_core_ms"] = time_ms(torch, lambda: cuda_core_decode(
+                    torch, decode_mod, q, k, v, lens), queued=True)
+                extra = f", CUDA-core kernel {row['cuda_core_ms']:.4f} ms"
+                if s == LM_CAPACITY:
+                    row["cold_l2_ms"] = time_cold_ms(torch, wrapper)
+                    row["cuda_core_cold_l2_ms"] = time_cold_ms(torch, lambda: cuda_core_decode(
+                        torch, decode_mod, q, k, v, lens))
+                    extra += (f"; L2 flushed before each call: kernel {row['cold_l2_ms']:.4f} "
+                              f"ms, CUDA-core kernel {row['cuda_core_cold_l2_ms']:.4f} ms")
+            print(f"[kernels] {kernel} {shape} timing, queued: kernel {ms:.4f} ms, plain "
+                  f"{plain:.4f} ms, sdpa(enable_gqa, mask) {lib:.4f} ms ({ms / lib:.2f}x; "
+                  f"max|sdpa-plain|={lib_err:.2e}), bound {row['bound_ms']:.4f} ms "
+                  f"({row['bound_by']}, {nbytes / 1e6:.1f} MB), splits "
+                  f"{decode_mod.n_splits(b, 24, 2, s, kernel)}{extra}; back to back from the "
+                  f"host: kernel {row['host_ms']:.4f} ms, sdpa {row['library_host_ms']:.4f} ms; "
+                  f"on the card per launch (profiler): {fmt_us(row['device_us'])}")
+            timings[kernel].append(row)
+            del q, k, v, kt, vt
+    rows = []
+    for kernel, source, serves in (
+            (decode_mod.MMA, "decode_attention_mma.cu", "bf16 at D 64, 128"),
+            (decode_mod.CUDA_CORE, "decode_attention.cu", "f32 at D 64, 128")):
+        path = timings[kernel][0]
+        rows.append(dict(
+            name=kernel, route="cuda", source=f"src/repro_torch/kernels/csrc/{source}",
+            replaces="src/repro/kernels/decode_attention.py:66", serves=serves,
+            max_abs_err=err_max[kernel], max_err=err_max[kernel],
+            tol={"f32": DECODE_F32, "bf16": DECODE_BF16},
+            ms=path["ms"], kernel_ms=path["ms"], plain_ms=path["plain_ms"],
+            library_ms=path["library_ms"],
+            library="torch.nn.functional.scaled_dot_product_attention(enable_gqa=True, "
+                    "attn_mask=length mask)", timing="queued",
+            bound_ms=path["bound_ms"], bound_us=path["bound_ms"] * 1e3,
+            bound_by=path["bound_by"], shape=path["shape"], timings=timings[kernel]))
+    return rows
 
 
 # ------------------------------------------------------------------------ path
@@ -562,12 +709,13 @@ def path_phase(torch, cfg, params, images) -> dict[str, int]:
     print(f"[path] launches: flash_attention_mma={counts['flash_attention_mma']}, CUDA-core "
           f"flash_attention={counts['flash_attention']} (schedule implies {exp_flash} bf16 "
           f"calls, all tensor-core), tome_scores={counts['tome_scores']} (schedule implies "
-          f"{exp_tome}), decode_attention={counts['decode_attention']}; "
-          f"plan cache traces={eng.plan_cache.traces_by_kind}")
+          f"{exp_tome}), decode_attention(_mma)={counts['decode_attention']}/"
+          f"{counts['decode_attention_mma']}; plan cache traces={eng.plan_cache.traces_by_kind}")
     check(counts["flash_attention_mma"] == exp_flash > 0, "flash_attention_mma launch count")
     check(counts["flash_attention"] == 0, "the bf16 ViT path launched the CUDA-core flash kernel")
     check(counts["tome_scores"] == exp_tome > 0, "tome_scores launch count")
-    check(counts["decode_attention"] == 0, "the ViT path launched decode_attention")
+    check(counts["decode_attention"] == counts["decode_attention_mma"] == 0,
+          "the ViT path launched decode_attention")
     return counts
 
 
@@ -608,7 +756,8 @@ def batch_phase(torch, cfg, params, images) -> dict[str, int]:
               f"{got['tome_scores']} ({n_forwards} stacked forwards imply {exp[0]} bf16 flash "
               f"calls, all tensor-core, and {exp[1]})")
         check((got["flash_attention_mma"], got["tome_scores"]) == exp and exp[0] > 0
-              and exp[1] > 0 and got["flash_attention"] == got["decode_attention"] == 0,
+              and exp[1] > 0 and got["flash_attention"] == got["decode_attention"] == 0
+              and got["decode_attention_mma"] == 0,
               f"{label} cloud batch launch counts")
         return got
 
@@ -662,10 +811,14 @@ def trace_phase(torch, cfg, params, images) -> None:
     profile_once(torch, "cloud batch B=8 split 18 (padded)", lambda: cloud(params, xp, sp))
 
 
+PORT_KERNEL = re.compile(r"\b(flash_mma_fwd|flash_fwd|tome_scores|decode_mma_partial|"
+                         r"decode_mma_combine|decode_partial|decode_combine)_kernel\b")
+
+
 def profile_once(torch, label: str, fn) -> None:
     """torch.profiler over one call of ``fn`` after one warm call: prints the
-    wall time, the sum of kernel time on the card, the idle share and the
-    top kernels as ``[trace]`` lines."""
+    wall time, the sum of kernel time on the card, the idle share, the top 8
+    kernels and every other kernel of the port as ``[trace]`` lines."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -688,9 +841,10 @@ def profile_once(torch, label: str, fn) -> None:
         return
     print(f"[trace] {label}: wall {wall_ms:.2f} ms, kernels on the card {busy_ms:.2f} ms "
           f"in {n} launches, idle share {1 - busy_ms / wall_ms:.3f}")
-    top = sorted(kernels.items(), key=lambda kv: -sum(kv[1]))[:8]
-    for name, ts in top:
-        print(f"[trace]   {sum(ts):8.3f} ms {len(ts):5d}x  {name[:90]}")
+    ranked = sorted(kernels.items(), key=lambda kv: -sum(kv[1]))
+    for i, (name, ts) in enumerate(ranked):  # the top 8, then the port's own kernels
+        if i < 8 or PORT_KERNEL.search(name):
+            print(f"[trace]   {sum(ts):8.3f} ms {len(ts):5d}x  {name[:90]}")
 
 
 # ---------------------------------------------------------------------- parity
@@ -755,7 +909,8 @@ def parity_phase(torch) -> dict[str, int]:
           f"{cfg.n_layers}, tome_scores {n_merge})")
     check(ok, "f32 whole-path parity failed")
     check(counts == {"flash_attention_mma": 0, "flash_attention": cfg.n_layers,
-                     "tome_scores": n_merge, "decode_attention": 0}, "f32 ViT launch counts")
+                     "tome_scores": n_merge, "decode_attention_mma": 0, "decode_attention": 0},
+          "f32 ViT launch counts")
     return counts
 
 
@@ -821,7 +976,8 @@ def lm_phase(torch) -> dict[str, int]:
           f"{LM_BATCH * LM_STEPS / sum(step_ms) * 1e3:.1f} generated tokens/s")
     print(f"[lm] weights {weights_gb:.3f} GB, max_memory_allocated {peak_gb:.3f} GB")
     exp = {"flash_attention_mma": cfg.n_layers, "flash_attention": 0,
-           "decode_attention": cfg.n_layers * LM_STEPS, "tome_scores": 0}
+           "decode_attention_mma": cfg.n_layers * LM_STEPS, "decode_attention": 0,
+           "tome_scores": 0}
     print(f"[lm] launches: {counts} (prefill and {LM_STEPS} steps imply {exp})")
     check(tuple(logits.shape) == (LM_BATCH, 1, cfg.vocab), "decode logits shape")
     check(bool(torch.stack(finite).all()), "non-finite LM logits")
@@ -874,7 +1030,8 @@ def lm_parity_phase(torch) -> dict[str, int]:
           f"{cache_err:.3e}, tol={PARITY_F32}, |logits| max {lp[-1].abs().max().item():.2f}, "
           f"{time.perf_counter() - t0:.1f} s {'ok' if ok else 'FAIL'}")
     exp = {"flash_attention_mma": 0, "flash_attention": cfg.n_layers,
-           "decode_attention": cfg.n_layers * steps, "tome_scores": 0}
+           "decode_attention_mma": 0, "decode_attention": cfg.n_layers * steps,
+           "tome_scores": 0}
     print(f"[lm parity] launches of the kernel run: {counts} (implies {exp})")
     check(ok, "f32 LM parity failed")
     check(counts == exp, "f32 LM launch counts")

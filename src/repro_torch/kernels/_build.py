@@ -19,7 +19,8 @@ import time
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-SOURCES = ("flash_attention", "flash_attention_mma", "tome_scores", "decode_attention")
+SOURCES = ("flash_attention", "flash_attention_mma", "tome_scores", "decode_attention",
+           "decode_attention_mma")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

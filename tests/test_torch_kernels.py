@@ -349,20 +349,150 @@ def test_decode_wrapper_uses_plain_version_on_cpu():
     rng = np.random.default_rng(12)
     q, k, v = _t(_randn(rng, (2, 4, 16))), _t(_randn(rng, (2, 40, 2, 16))), \
         _t(_randn(rng, (2, 40, 2, 16)))
-    before = decode_mod.launches
+    before = decode_mod.launches, decode_mod.launches_mma
     exp = ref.decode_attention_ref(q, k, v, torch.tensor([9, 9], dtype=torch.int32))
     for lengths in (9, torch.tensor(9), torch.tensor([9, 9], dtype=torch.int32)):
         assert torch.equal(decode_mod.decode_attention(q, k, v, lengths), exp)
     with ops.plain_versions():
         assert torch.equal(ops.decode_attention(q, k, v, 9), exp)
-    assert decode_mod.launches == before  # plain versions launch nothing
+    qb, kb, vb = (t.bfloat16() for t in (q, k, v))  # the tensor-core kernel's dtype
+    assert torch.equal(decode_mod.decode_attention(qb, kb, vb, 9),
+                       ref.decode_attention_ref(qb, kb, vb, 9))
+    assert (decode_mod.launches, decode_mod.launches_mma) == before  # plain versions launch nothing
 
 
-@pytest.mark.parametrize("b,hq,hkv,s,expect", [
-    (8, 24, 2, 2048, 32), (8, 24, 2, 8192, 33), (1, 24, 2, 32768, 264),
-    (1, 40, 2, 64, 1), (2, 4, 2, 100, 2),
+@pytest.mark.parametrize("dtype,d,kernel", [
+    (torch.bfloat16, 64, decode_mod.MMA), (torch.bfloat16, 128, decode_mod.MMA),
+    (torch.float32, 64, decode_mod.CUDA_CORE), (torch.float32, 128, decode_mod.CUDA_CORE),
 ])
-def test_decode_split_count_follows_the_shapes(b, hq, hkv, s, expect):
-    """Enough blocks for the card (about 4 per SM), no more splits than
-    tiles of capacity; groups above 16 heads take several head tiles."""
-    assert decode_mod.n_splits(b, hq, hkv, s) == expect
+def test_decode_kernel_for_routes_by_dtype(dtype, d, kernel):
+    """bf16 goes to the tensor-core kernel, f32 (which must stay off TF32)
+    to the CUDA-core one. Each name is a source the build compiles."""
+    from repro_torch.kernels import _build
+    assert decode_mod.kernel_for(dtype, d) == kernel
+    assert kernel in _build.SOURCES
+
+
+@pytest.mark.parametrize("dtype,d,exc", [
+    (torch.float16, 128, TypeError), (torch.int32, 64, TypeError),
+    (torch.bfloat16, 32, ValueError), (torch.bfloat16, 96, ValueError),
+    (torch.float32, 16, ValueError),
+])
+def test_decode_kernel_for_raises_on_what_no_kernel_takes(dtype, d, exc):
+    with pytest.raises(exc):
+        decode_mod.kernel_for(dtype, d)
+
+
+def _decode_mma_emulation(q, k, v, lengths, nsplit, ch=64, warps=4):
+    """The tensor-core decode kernel's arithmetic (``csrc/decode_attention_mma.cu``)
+    on the CPU: bf16 q, k, v; the valid tiles of ``ch`` positions spread over
+    ``nsplit`` splits; in each split every warp carries its own online softmax
+    over its ``ch / warps`` positions of each tile, in log2 units, with the
+    weights P rounded to bf16 before P.V and l summed from the f32 weights;
+    the warps, then the splits, merge their (m, l, O), a state whose max
+    stayed at the sentinel weighing 0; one bf16 rounding of the output."""
+    b, hq, d = q.shape
+    s, hkv = k.shape[1], k.shape[2]
+    g, pw = hq // hkv, ch // warps
+    scale_log2 = torch.tensor(LOG2E / np.sqrt(d), dtype=torch.float32)
+    neg = torch.tensor(ref.NEG)
+
+    def merge(states):
+        """(m, l, o) states -> one, skipping those with no valid position."""
+        ms = torch.stack([m for m, _, _ in states])
+        valid = ms > 0.5 * ref.NEG
+        mb = torch.where(valid, ms, neg).amax(0)
+        w = torch.where(valid, torch.exp2(ms - mb), torch.zeros_like(ms))
+        lb = (torch.stack([l for _, l, _ in states]) * w).sum(0)
+        ob = (torch.stack([o for _, _, o in states]) * w).sum(0)
+        return mb, lb, ob
+
+    out = torch.zeros((b, hkv, g, d))
+    for bi in range(b):
+        n = max(0, min(int(lengths[bi]), s))
+        nt = -(-n // ch)
+        qf = q[bi].float().reshape(hkv, g, d)
+        kf, vf = (t[bi].float().transpose(0, 1) for t in (k, v))  # [Hkv, S, D]
+        parts = []
+        for sp in range(nsplit):
+            states = []
+            for w in range(warps):
+                m = torch.full((hkv, g, 1), ref.NEG)
+                l, o = torch.zeros((hkv, g, 1)), torch.zeros((hkv, g, d))
+                for t in range(sp * nt // nsplit, (sp + 1) * nt // nsplit):
+                    pos = torch.arange(t * ch + w * pw, t * ch + (w + 1) * pw)
+                    ok = pos < n
+                    kk, vv = (torch.where(ok[None, :, None], x[:, pos.clamp(max=s - 1)], 0.0)
+                              for x in (kf, vf))  # zero-filled past the length
+                    x = torch.einsum("hgd,hpd->hgp", qf, kk) * scale_log2
+                    x = torch.where(ok, x, neg)
+                    mn = torch.maximum(m, x.amax(-1, keepdim=True))
+                    alpha, p = torch.exp2(m - mn), torch.exp2(x - mn)
+                    l = l * alpha + p.sum(-1, keepdim=True)
+                    o = o * alpha + torch.einsum("hgp,hpd->hgd", p.bfloat16().float(), vv)
+                    m = mn
+                states.append((m, l, o))
+            parts.append(merge(states))
+        # the combine skips splits with l = 0 (empty ones)
+        _, lb, ob = merge([(torch.where(l > 0, m, neg), l, o) for m, l, o in parts])
+        out[bi] = ob / lb.clamp_min(1e-30)
+    return out.reshape(b, hq, d).bfloat16()
+
+
+@pytest.mark.parametrize("b,hq,hkv,s,d", [
+    (3, 24, 2, 300, 128),  # group 12 at D=128, as starcoder2-3b
+    (3, 4, 2, 300, 64),    # group 2 at D=64, as internlm2
+])
+@pytest.mark.parametrize("nsplit", [None, 3])
+def test_decode_mma_rounding_points_stay_inside_the_bf16_tolerance(b, hq, hkv, s, d, nsplit):
+    """The tensor-core decode kernel rounds P to bf16 before P.V, where the
+    plain version and the Pallas kernel keep f32 weights; the emulation of
+    its arithmetic (warp slices, even spread of the valid tiles over the
+    splits, the warp and split merges) agrees with both within the card
+    tests' bf16 tolerance (atol 2e-2), at lengths 1, ragged and full, with
+    the wrapper's split count and with 3 splits."""
+    rng = np.random.default_rng(23)
+    q = _t(_randn(rng, (b, hq, d)), dtype=torch.bfloat16)
+    k, v = (_t(_randn(rng, (b, s, hkv, d)), dtype=torch.bfloat16) for _ in "kv")
+    lengths = torch.tensor([1, 197, s], dtype=torch.int32)
+    nsplit = decode_mod.n_splits(b, hq, hkv, s, decode_mod.MMA) if nsplit is None else nsplit
+    emu = _decode_mma_emulation(q, k, v, lengths, nsplit)
+    plain = ref.decode_attention_ref(q, k, v, lengths)
+    assert emu.dtype == plain.dtype == torch.bfloat16
+    torch.testing.assert_close(emu.float(), plain.float(), atol=2e-2, rtol=0)
+    for i, n in enumerate(lengths.tolist()):
+        jb = [jnp.asarray(t[i:i + 1].float().numpy(), jnp.bfloat16) for t in (q, k, v)]
+        pallas = np.asarray(jdecode(*jb, jnp.int32(n), bs=128), np.float32)
+        torch.testing.assert_close(emu[i:i + 1].float(), torch.from_numpy(pallas),
+                                   atol=2e-2, rtol=0)
+    assert torch.all(_decode_mma_emulation(q, k, v, torch.zeros(b, dtype=torch.int32),
+                                           nsplit) == 0)
+
+
+@pytest.mark.parametrize("b,hq,hkv,s,kernel,expect", [
+    # the tensor-core kernel (bf16): the LM path, 17 valid tiles (lengths
+    # 1025..1088) over 8 splits; longer caches; one split when the shapes
+    # alone fill the card
+    (8, 24, 2, 2048, decode_mod.MMA, 8), (8, 24, 2, 8192, decode_mod.MMA, 16),
+    (1, 24, 2, 32768, decode_mod.MMA, 128), (1, 40, 2, 64, decode_mod.MMA, 1),
+    (2, 4, 2, 100, decode_mod.MMA, 1), (2, 8, 2, 2000, decode_mod.MMA, 8),
+    (64, 32, 8, 4096, decode_mod.MMA, 1),
+    # the CUDA-core kernel (f32), its rule unchanged
+    (8, 24, 2, 2048, decode_mod.CUDA_CORE, 32), (8, 24, 2, 8192, decode_mod.CUDA_CORE, 33),
+    (1, 24, 2, 32768, decode_mod.CUDA_CORE, 264), (1, 40, 2, 64, decode_mod.CUDA_CORE, 1),
+    (2, 4, 2, 100, decode_mod.CUDA_CORE, 2),
+])
+def test_decode_split_count_follows_the_shapes(b, hq, hkv, s, kernel, expect):
+    """The tensor-core kernel: at least 4 tiles of capacity per split and
+    no more blocks than about two per SM. The CUDA-core kernel: about four
+    blocks per SM, no more splits than tiles of capacity. Groups above 16
+    heads take several head tiles."""
+    assert decode_mod.n_splits(b, hq, hkv, s, kernel) == expect
+
+
+def test_decode_path_shape_gives_every_split_several_tiles():
+    """At the LM path's shape each split walks 2 or 3 of the 17 valid tiles
+    (lengths 1025..1088): no split has a single tile, and none is empty."""
+    nsplit, nt = decode_mod.n_splits(8, 24, 2, 2048, decode_mod.MMA), -(-1088 // decode_mod.CH)
+    shares = [(i + 1) * nt // nsplit - i * nt // nsplit for i in range(nsplit)]
+    assert sum(shares) == nt and min(shares) >= 2 and max(shares) <= 3
