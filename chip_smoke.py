@@ -38,6 +38,18 @@ each failing the run on any failed check:
             before each and must show the counts the stacked forwards imply;
    trace:   torch.profiler over one device partition and one cloud batch:
             kernel time on the card, idle share, top kernels;
+   fleet:   the serving layer on the same model: ``workload.build_runtime`` of
+            8 camera streams x 12 frames (Poisson 10 fps, wifi driving, device
+            tiers phone/jetson/laptop) through one cloud tier (capacity 2,
+            micro-batches of up to 8) with ``execute=True``, once bucketed (run
+            A, telemetry on) and once exact (run B), which must agree; the
+            launch counters are zeroed before each and must equal what the
+            executed plans imply (device partitions' layers plus each stacked
+            cloud forward's layers, and their merge layers), all on the
+            tensor-core flash kernel. Run C: a one-stream fleet against
+            ``JanusEngine.run_trace`` on one trace. Then the CLI's fleet mode
+            (``repro_torch.launch.serve --streams 4 --execute``, the reduced
+            ViT) and torch.profiler over run A;
 6. parity:  ViT-L@384 in f32, ``vit.forward_janus`` through the kernels
             (flash on the CUDA-core kernel, counted) against the plain path
             on the card: logits within tolerance and identical merge indices
@@ -137,6 +149,7 @@ def main() -> int:
     model = _vit_l(torch, torch.bfloat16)
     paths = {"vit": path_phase(torch, *model), "vit_batch": batch_phase(torch, *model)}
     trace_phase(torch, *model)
+    paths["fleet"], paths["fleet_cli"] = fleet_phase(torch, *model)
     del model
     paths["vit_f32_parity"] = parity_phase(torch)
     torch.cuda.empty_cache()
@@ -819,7 +832,6 @@ def profile_once(torch, label: str, fn) -> None:
     """torch.profiler over one call of ``fn`` after one warm call: prints the
     wall time, the sum of kernel time on the card, the idle share, the top 8
     kernels and every other kernel of the port as ``[trace]`` lines."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -829,6 +841,14 @@ def profile_once(torch, label: str, fn) -> None:
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    report_profile(label, prof, wall_ms)
+
+
+def report_profile(label: str, prof, wall_ms: float) -> None:
+    """The ``[trace]`` lines of one profiled window: wall, kernel time on the
+    card, launches, idle share, the top 8 kernels and the port's own."""
+    from torch.autograd import DeviceType
+
     kernels: dict[str, list[float]] = {}
     for ev in prof.events():
         if ev.device_type == DeviceType.CUDA:
@@ -845,6 +865,268 @@ def profile_once(torch, label: str, fn) -> None:
     for i, (name, ts) in enumerate(ranked):  # the top 8, then the port's own kernels
         if i < 8 or PORT_KERNEL.search(name):
             print(f"[trace]   {sum(ts):8.3f} ms {len(ts):5d}x  {name[:90]}")
+
+
+# ----------------------------------------------------------------------- fleet
+
+FLEET_STREAMS, FLEET_FRAMES = 8, 12
+
+
+def _fleet_spec(workload):
+    """The fleet phase's traffic: 8 camera streams x 12 frames, Poisson 10
+    fps with at most 4 frames in flight, wifi driving, device tiers
+    phone/jetson/laptop round-robin, one cloud tier of 2 executors taking
+    micro-batches of up to 8. wifi offloads most frames to the cloud, so
+    streams co-batch; driving and the tiers make Algorithm 1 prune some of
+    them (α=0.27), so the cloud forwards merge tokens too."""
+    return workload.WorkloadSpec(
+        name="fleet-smoke", n_streams=FLEET_STREAMS, n_frames=FLEET_FRAMES, seed=3,
+        network=workload.NetworkConfig("synthetic", "wifi", "driving"),
+        tiers=("phone", "jetson", "laptop"),
+        arrivals=workload.ArrivalConfig(kind="poisson", rate_fps=10.0, max_inflight=4),
+        capacity=2, max_batch=8)
+
+
+class FleetMeter:
+    """Records, while installed, what each executed plan implies and how long
+    each partition took: the device partitions (``JanusEngine._execute_device``,
+    less the host wire step ``_wire``) and every ``run_cloud_batch`` call that
+    runs cloud layers (the fleet's dispatches and the single-stream engine's
+    inline cloud runs, not a device-only frame's head), each closed by a
+    synchronize. The implied launches are one flash call per layer
+    run and one tome_scores call per merge layer run, per stacked forward."""
+
+    def __init__(self, torch, cfg):
+        self.torch, self.cfg = torch, cfg
+        self.reset()
+
+    def reset(self):
+        self.implied = {"flash": 0, "tome": 0}
+        self.device_ms, self.wire_ms, self.cloud_ms, self.stacked = [], [], [], []
+
+    def _now(self):
+        self.torch.cuda.synchronize()
+        return time.perf_counter()
+
+    def _layers(self, schedule, lo, hi):
+        self.implied["flash"] += hi - lo
+        self.implied["tome"] += sum(1 for r in schedule[lo:hi] if r > 0)
+
+    def __enter__(self):
+        from repro_torch.core import engine
+        from repro_torch.serving import simcore
+        meter, n = self, self.cfg.n_layers
+        self._saved = (engine.JanusEngine._execute_device, engine.JanusEngine._wire,
+                       engine.run_cloud_batch, simcore.run_cloud_batch)
+        execute_device, wire, run_cloud_batch, _ = self._saved
+
+        def timed_execute_device(eng, dec, images):
+            t0, meter._wire_s = meter._now(), 0.0
+            plan, payload = execute_device(eng, dec, images)
+            layers = n if plan.split == n + 1 else plan.split
+            meter.device_ms.append((layers, (meter._now() - t0 - meter._wire_s) * 1e3))
+            meter._layers(plan.schedule, 0, layers)
+            return plan, payload
+
+        def timed_wire(eng, x):
+            t0 = meter._now()
+            out = wire(eng, x)
+            meter._wire_s += meter._now() - t0
+            meter.wire_ms.append((meter._now() - t0) * 1e3)
+            return out
+
+        def timed_run_cloud_batch(cache, cfg, params, plans, buckets=None):
+            groups: dict[tuple, int] = {}
+            for p in plans:
+                if p is None or p.logits is not None:
+                    continue
+                s = n if p.split == n + 1 else p.split
+                key = (p.schedule, s, p.x.shape[1]) if buckets is None else \
+                    (p.schedule[s:], s, buckets.edge_for(s, p.x.shape[1]))
+                groups[key] = groups.get(key, 0) + p.x.shape[0]
+            for key, rows in groups.items():
+                suffix = key[0][key[1]:] if buckets is None else key[0]
+                meter._layers(suffix, 0, n - key[1])
+                if key[1] < n:  # not a device-only frame's head
+                    meter.stacked.append(rows)
+            t0 = meter._now()
+            run_cloud_batch(cache, cfg, params, plans, buckets=buckets)
+            if any(key[1] < n for key in groups):
+                meter.cloud_ms.append((meter._now() - t0) * 1e3)
+
+        engine.JanusEngine._execute_device = timed_execute_device
+        engine.JanusEngine._wire = timed_wire
+        engine.run_cloud_batch = simcore.run_cloud_batch = timed_run_cloud_batch
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.core import engine
+        from repro_torch.serving import simcore
+        (engine.JanusEngine._execute_device, engine.JanusEngine._wire,
+         engine.run_cloud_batch, simcore.run_cloud_batch) = self._saved
+        return False
+
+
+def _median(xs) -> float:
+    return sorted(xs)[len(xs) // 2] if xs else float("nan")
+
+
+def fleet_phase(torch, cfg, params, images) -> tuple[dict[str, int], dict[str, int]]:
+    """The serving layer on the card (see the module docstring). Returns the
+    launch counts of runs A + B + C, and those of the CLI's fleet mode."""
+    import collections
+
+    from repro_torch.configs import janus_vit_l384
+    from repro_torch.core import bandwidth, engine
+    from repro_torch.core.bucketing import BucketingConfig
+    from repro_torch.launch import serve
+    from repro_torch.serving import fleet, telemetry, workload
+
+    profile = serve.make_profile(janus_vit_l384.CONFIG)
+    eng_cfg = engine.EngineConfig(sla_s=0.3, execute=True, include_scheduler_overhead=False)
+    spec = _fleet_spec(workload)
+    meter = FleetMeter(torch, cfg)
+
+    def build(bucketing):
+        return workload.build_runtime(spec, profile, eng_cfg, model_cfg=cfg, params=params,
+                                      bucketing=bucketing, device="cuda")
+
+    def counted_run(label, rt, tel=None):
+        meter.reset()
+        zero_counts()
+        with meter:
+            t0 = time.perf_counter()
+            fs = rt.run(images=images, telemetry=tel)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        counts = read_counts()
+        n_done = len(fs.all_frames)
+        full = [ms for layers, ms in meter.device_ms if layers > 0]
+        embed = [ms for layers, ms in meter.device_ms if layers == 0]
+        print(f"[fleet] run {label}: wall {wall:.3f} s, {n_done} executed frames, "
+              f"{n_done / wall:.2f} frames/s; device partition median "
+              f"{_median(full):.2f} ms ({len(full)}x with layers), "
+              f"{_median(embed):.2f} ms ({len(embed)}x embed only), cloud batch "
+              f"median {_median(meter.cloud_ms):.2f} ms ({len(meter.cloud_ms)}x), host wire "
+              + (f"median {_median(meter.wire_ms):.2f} ms ({len(meter.wire_ms)}x)"
+                 if meter.wire_ms else "none (no frame split mid-model)")
+              + f"; stacked forwards {collections.Counter(meter.stacked)}; "
+              f"plan cache traces {rt.plan_cache.traces_by_kind}")
+        print(f"[fleet] run {label} launches: flash_attention_mma="
+              f"{counts['flash_attention_mma']}, CUDA-core flash_attention="
+              f"{counts['flash_attention']}, tome_scores={counts['tome_scores']} (the executed "
+              f"plans imply {meter.implied['flash']} bf16 flash calls, all tensor-core, and "
+              f"{meter.implied['tome']}), decode_attention(_mma)={counts['decode_attention']}/"
+              f"{counts['decode_attention_mma']}")
+        check(counts["flash_attention_mma"] == meter.implied["flash"] > 0
+              and counts["tome_scores"] == meter.implied["tome"] > 0,
+              f"fleet run {label}: launches differ from what the executed plans imply")
+        check(counts["flash_attention"] == counts["decode_attention"]
+              == counts["decode_attention_mma"] == 0,
+              f"fleet run {label} launched a CUDA-core flash or a decode kernel")
+        for st, dropped in zip(fs.per_stream, fs.dropped_per_stream):
+            check(len(st.frames) + dropped == spec.n_frames,
+                  f"fleet run {label}: frames not conserved")
+        for f in fs.all_frames:
+            check(f.logits is not None and tuple(f.logits.shape) == (1, cfg.n_classes)
+                  and bool(torch.isfinite(f.logits.float()).all()),
+                  f"fleet run {label}: an executed frame without finite logits")
+        return fs, counts, wall
+
+    # run A: bucketed, telemetry on; run B: exact
+    rt_a = build(BucketingConfig(n_edges=2))
+    tel = telemetry.Telemetry(telemetry.TelemetryConfig(stream_sample=1))
+    fs_a, counts_a, wall_a = counted_run("A (bucketed)", rt_a, tel)
+    stacked_a = max(meter.stacked, default=0)
+    rt_b = build(None)
+    fs_b, counts_b, _ = counted_run("B (exact)", rt_b)
+    err = 0.0
+    for fa, fb in zip(fs_a.all_frames, fs_b.all_frames):
+        check((fa.alpha, fa.split, fa.payload_bytes) == (fb.alpha, fb.split, fb.payload_bytes)
+              and (fa.latency_s, fa.queue_s, fa.violated, fa.accuracy, fa.bandwidth_bps)
+              == (fb.latency_s, fb.queue_s, fb.violated, fb.accuracy, fb.bandwidth_bps),
+              "fleet runs A and B disagree on the timing plane")
+        check(torch.allclose(fa.logits.float(), fb.logits.float(), **BATCH_BF16),
+              "fleet runs A and B disagree on the logits")
+        err = max(err, (fa.logits.float() - fb.logits.float()).abs().max().item())
+    check(len(fs_a.all_frames) == len(fs_b.all_frames)
+          and fs_a.batch_sizes == fs_b.batch_sizes, "fleet runs A and B differ in shape")
+    rec = tel.reconcile(fs_a)
+    n_padded = rt_a.plan_cache.traces_by_kind.get("cloud_padded", 0)
+    print(f"[fleet aggregate] run A frames={len(fs_a.all_frames)} "
+          f"viol%={100*fs_a.violation_ratio:.1f} p50={fs_a.p50_latency_s*1e3:.1f}ms "
+          f"p99={fs_a.p99_latency_s*1e3:.1f}ms queue={fs_a.avg_queue_s*1e3:.2f}ms "
+          f"drop%={100*fs_a.drop_ratio:.1f} cloud_util={100*fs_a.cloud_utilization:.1f}% "
+          f"avg_batch={fs_a.avg_batch_size:.2f} fps={fs_a.aggregate_fps:.1f} "
+          f"accuracy={fs_a.avg_accuracy:.4f}")
+    print(f"[fleet] splits {dict(sorted(collections.Counter(f.split for f in fs_a.all_frames).items()))}, "
+          f"alphas {dict(sorted(collections.Counter(round(f.alpha, 2) for f in fs_a.all_frames).items()))}, "
+          f"cloud micro-batch sizes {dict(sorted(collections.Counter(fs_a.batch_sizes).items()))}")
+    print(f"[fleet] A vs B: decisions, payloads and timing plane identical, "
+          f"max|logits A-B|={err:.3e} tol={BATCH_BF16}; largest stacked cloud forward "
+          f"{stacked_a} frames; cloud_padded traces {n_padded} <= bucket cells "
+          f"{rt_a.buckets.n_cells}; telemetry spans={tel.spans_total} reconcile="
+          f"{'ok' if rec['ok'] else 'MISMATCH ' + repr(rec)}")
+    check(stacked_a > 1, "no cloud forward of the fleet stacked more than one frame")
+    check(rec["ok"], "fleet telemetry does not reconcile")
+    check(n_padded <= rt_a.buckets.n_cells, "cloud_padded traces exceed the bucket cells")
+
+    # the simulator alone on the same traffic (timing plane, no model math)
+    rt_sim = workload.build_runtime(spec, profile, dataclasses.replace(eng_cfg, execute=False),
+                                    device="cuda")
+    t0 = time.perf_counter()
+    fs_sim = rt_sim.run()
+    sim_s = time.perf_counter() - t0
+    print(f"[fleet] simcore alone (execute off, same traffic): {sim_s * 1e6 / len(fs_sim.all_frames):.1f} "
+          f"us per frame; fleet run A {wall_a * 1e6 / len(fs_a.all_frames):.1f} us per frame")
+
+    # run C: a one-stream fleet against the single-stream engine
+    trace = bandwidth.synthetic_trace("5g", "walking", steps=8, seed=5)
+    meter.reset()
+    zero_counts()
+    with meter:
+        st_engine = engine.JanusEngine(profile, eng_cfg, model_cfg=cfg, params=params,
+                                       device="cuda").run_trace(trace, 8, images=images)
+        rt_c = fleet.FleetRuntime(profile, eng_cfg, [fleet.StreamSpec(trace, 8)],
+                                  cloud=fleet.CloudTierConfig(max_batch=1), model_cfg=cfg,
+                                  params=params, device="cuda")
+        st_fleet = rt_c.run(images=images).per_stream[0]
+    counts_c = read_counts()
+    check(counts_c["flash_attention_mma"] == meter.implied["flash"]
+          and counts_c["tome_scores"] == meter.implied["tome"]
+          and counts_c["flash_attention"] == 0, "fleet run C launch counts")
+    same = [f.latency_s for f in st_fleet.frames] == [f.latency_s for f in st_engine.frames] \
+        and [f.payload_bytes for f in st_fleet.frames] == [f.payload_bytes for f in st_engine.frames]
+    bit_equal = all(torch.equal(a.logits, b.logits)
+                    for a, b in zip(st_fleet.frames, st_engine.frames))
+    print(f"[fleet] run C: one-stream fleet vs run_trace on {trace.name}, 8 frames "
+          f"(splits {[f.split for f in st_fleet.frames]}): latencies and payloads "
+          f"{'equal' if same else 'DIFFER'}, logits {'bit-equal' if bit_equal else 'DIFFER'}; "
+          f"launches {counts_c}")
+    check(len(st_fleet.frames) == len(st_engine.frames) == 8 and same and bit_equal,
+          "the one-stream fleet differs from the single-stream engine")
+
+    # the CLI's fleet mode on the card (the reduced ViT, as the reference CLI)
+    zero_counts()
+    serve.main(["--streams", "4", "--frames", "5", "--execute", "--bucket-edges", "2"])
+    counts_cli = read_counts()
+    print(f"[fleet] CLI --streams 4 --frames 5 --execute --bucket-edges 2: launches {counts_cli}")
+    check(counts_cli["flash_attention"] > 0, "the CLI's fleet mode launched no kernel")
+
+    # where run A's time goes: torch.profiler (CUDA activity only: a fleet run
+    # is ~10^5 launches) over a fresh run A
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+    rt_t = build(BucketingConfig(n_edges=2))
+    with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        rt_t.run(images=images)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    report_profile(f"fleet run A (telemetry off), {len(fs_a.all_frames)} frames", prof,
+                   wall_ms)
+    return ({name: counts_a[name] + counts_b[name] + counts_c[name] for name in counts_a},
+            counts_cli)
 
 
 # ---------------------------------------------------------------------- parity

@@ -59,6 +59,35 @@ def test_entry_points_raise_without_a_card():
     engine.JanusEngine(profile, engine.EngineConfig(sla_s=0.3), device="cpu")
 
 
+def test_serving_entry_points_raise_without_a_card():
+    """The fleet, the workload builder and the CLI's fleet mode run on
+    ``cuda`` unless told ``device="cpu"``; sharding is not ported and a
+    non-None ``mesh_rules`` says so."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    from repro_torch.configs import janus_vit_l384
+    from repro_torch.core import bandwidth, engine
+    from repro_torch.launch import serve
+    from repro_torch.serving import fleet, workload
+
+    profile = serve.make_profile(janus_vit_l384.CONFIG)
+    cfg = engine.EngineConfig(sla_s=0.3)
+    streams = [fleet.StreamSpec(bandwidth.synthetic_trace("4g", "driving", steps=2, seed=0), 2)]
+    spec = workload.WorkloadSpec(n_streams=2, n_frames=2)
+    with pytest.raises(RuntimeError, match="cuda"):
+        fleet.FleetRuntime(profile, cfg, streams)
+    with pytest.raises(RuntimeError, match="cuda"):
+        workload.build_runtime(spec, profile, cfg)
+    with pytest.raises(RuntimeError, match="cuda"):
+        serve.main(["--streams", "2", "--execute"])
+    with pytest.raises(NotImplementedError, match="sharding"):
+        fleet.FleetRuntime(profile, cfg, streams, mesh_rules=object(), device="cpu")
+    rt = workload.build_runtime(spec, profile, cfg, device="cpu")
+    assert {e.device for e in rt.engines} == {torch.device("cpu")}
+    assert len(rt.run().all_frames) == 4
+    fleet.FleetRuntime(profile, cfg, streams, device="cpu")
+
+
 def test_engine_rejects_tensors_on_another_device():
     """The engine moves nothing between devices: params or images that do
     not lie on its device raise instead of running there."""
