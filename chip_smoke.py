@@ -19,10 +19,13 @@ each failing the run on any failed check:
             tensor-core one (bf16 at D 64 and 128) and the CUDA-core one (f32,
             and bf16 at D 16 and 32); both are timed at ViT B=1, ViT B=8 and
             the LM prefill shape, the CUDA-core one also in bf16 beside the
-            tensor-core one. tome_scores at B=1 and B=8. decode_attention has
+            tensor-core one; the tensor-core one also at the two MoE prefills
+            (qwen3 [8,32,1024,128], granite [8,24,1024,64], causal).
+            tome_scores at B=1 and B=8. decode_attention has
             two kernels too, chosen by dtype: the tensor-core one (bf16) and
             the CUDA-core one (f32), both timed at the LM decode shape and two
-            longer caches, the CUDA-core one also in bf16 beside the
+            longer caches, the tensor-core one also at the MoE decode shapes
+            (group 8 at D=128, group 3 at D=64), the CUDA-core one also in bf16 beside the
             tensor-core one, and the tensor-core one also with the L2 flushed
             before each call. tome_scores and decode_attention are timed with
             the calls queued behind a sleep kernel (the card's time per call,
@@ -50,10 +53,12 @@ each failing the run on any failed check:
             ``JanusEngine.run_trace`` on one trace. Then the CLI's fleet mode
             (``repro_torch.launch.serve --streams 4 --execute``, the reduced
             ViT) and torch.profiler over run A;
+   vit forward: the vanilla ``vit.forward`` (no merging) at B=8 bf16: 24
+            tensor-core flash launches, finite logits;
 6. parity:  ViT-L@384 in f32, ``vit.forward_janus`` through the kernels
             (flash on the CUDA-core kernel, counted) against the plain path
             on the card: logits within tolerance and identical merge indices
-            per merge layer;
+            per merge layer; then ``vit.forward`` likewise;
 7. lm:      starcoder2-3b bf16 at full width and depth (random weights from
             a seeded generator) serves 8 prompts of 1024 tokens through
             ``lm.prefill`` and 64 greedy ``lm.decode_step``s on a cache of
@@ -64,7 +69,19 @@ each failing the run on any failed check:
 8. lm parity: starcoder2-3b in f32, prefill of 2 x 256 tokens and 8
             teacher-forced decode steps through the kernels (counted: flash 30
             and decode 240, all on the CUDA-core kernels) against the plain
-            versions on the card: logits within tolerance at every step.
+            versions on the card: logits within tolerance at every step;
+9. moe:     qwen3-moe-30b-a3b bf16 at all 48 layers and full widths (61 GB of
+            random weights drawn on the card) serves as ``lm`` does (flash 48,
+            decode 48 x 64), traced with the MoE layers' share of kernel time;
+   moe_cache: the same weights on the per-layer int8 cache (scale 0.05),
+            prefill and 16 steps (int8 buffers, flash 48, decode 48 x 16);
+   moe:     granite-moe-3b-a800m bf16 at full size (experts padded 40 -> 48,
+            D=64), prefill and 16 steps (flash 32, decode 32 x 16);
+10. moe_parity: qwen3-moe-30b-a3b in f32 at 4 of its 48 layers, full widths,
+            2 x 256 + 8 teacher-forced tokens through the kernels against the
+            plain versions, on the stacked f32 cache and on the per-layer int8
+            cache: routes identical (or a near-tie, printed), then logits
+            within tolerance.
 
 The line before the last is the kernels JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without a card, or outside a checkout, it
@@ -94,7 +111,7 @@ TOME_MAX = dict(atol=2e-5, rtol=1e-3)   # tests/test_kernels.py:29-30
 DECODE_F32 = dict(atol=2e-5, rtol=1e-4)  # tests/test_kernels.py:113
 DECODE_BF16 = dict(atol=2e-2, rtol=0.0)  # f32 math on both sides, one rounding of the output
 BATCH_BF16 = dict(atol=0.1, rtol=0.05)  # bucketed vs exact logits, bf16, 6 layers
-PARITY_F32 = dict(atol=1e-3, rtol=1e-3)  # kernels vs plain, f32 whole paths (ViT 24, LM 30 layers)
+PARITY_F32 = dict(atol=1e-3, rtol=1e-3)  # kernels vs plain, f32 whole paths (ViT 24, LM 30, MoE 4 layers)
 
 
 def fail(msg: str) -> None:
@@ -150,12 +167,19 @@ def main() -> int:
     paths = {"vit": path_phase(torch, *model), "vit_batch": batch_phase(torch, *model)}
     trace_phase(torch, *model)
     paths["fleet"], paths["fleet_cli"] = fleet_phase(torch, *model)
+    paths["vit_forward"] = vit_forward_phase(torch, *model[:2])
     del model
-    paths["vit_f32_parity"] = parity_phase(torch)
+    paths["vit_f32_parity"], paths["vit_forward_f32_parity"] = parity_phase(torch)
     torch.cuda.empty_cache()
     paths["lm"] = lm_phase(torch)
     torch.cuda.empty_cache()
     paths["lm_f32_parity"] = lm_parity_phase(torch)
+    torch.cuda.empty_cache()
+    paths["moe_qwen3"], paths["moe_qwen3_cache"] = moe_phase(torch)
+    torch.cuda.empty_cache()
+    paths["moe_granite"] = granite_phase(torch)
+    torch.cuda.empty_cache()
+    paths["moe_f32_parity"], paths["moe_f32_parity_int8"] = moe_parity_phase(torch)
 
     for row in rows:
         name = row["name"]
@@ -382,14 +406,19 @@ def kernel_phase(torch) -> list[dict]:
         flash_case("LM prefill causal", 8, dtype, sq=1024, sk=1024, causal=True, h=24, d=128,
                    with_bias=False)
     flash_case("small head dim", 2, torch.bfloat16, h=4, d=32)
+    for label, hh, dd in MOE_PREFILL:
+        flash_case(label, 8, torch.bfloat16, sq=1024, sk=1024, causal=True, h=hh, d=dd,
+                   with_bias=False)
 
     # timings at the paths' calls: a ViT frame (B=1) and the cloud batch of 8
     # frames, with the bias; the LM prefill, causal
     def flash_timings(kernel, dtype) -> list[dict]:
         out = []
-        for label, b, hh, ss, dd, causal in (("ViT B=1", 1, h, s, d, False),
-                                             ("ViT B=8", 8, h, s, d, False),
-                                             ("LM prefill", 8, 24, 1024, 128, True)):
+        shapes = [("ViT B=1", 1, h, s, d, False), ("ViT B=8", 8, h, s, d, False),
+                  ("LM prefill", 8, 24, 1024, 128, True)]
+        if kernel == flash_mod.MMA:  # the MoE prefills: bf16 only
+            shapes += [(label, 8, hh, 1024, dd, True) for label, hh, dd in MOE_PREFILL]
+        for label, b, hh, ss, dd, causal in shapes:
             q, k, v, bias = flash_inputs(b, dtype, ss, ss, 0, hh, dd)
             bias = None if causal else bias
             check(flash_mod.kernel_for(dtype, dd) == kernel, f"{kernel} timing route")
@@ -517,12 +546,14 @@ def kernel_phase(torch) -> list[dict]:
 
 def decode_kernel_phase(torch) -> list[dict]:
     """decode_attention's two kernels against the plain version (lengths 1,
-    ragged inside a tile, full; group 12 as starcoder2-3b and 2 as internlm2;
-    D 64 and 128): bf16 on the tensor-core kernel, f32 on the CUDA-core one.
-    Then each timed at the LM path's last decode step and at two longer
-    caches, beside the plain version and SDPA with a length mask; the
-    tensor-core one also beside the CUDA-core kernel on the same bf16 call
-    and, at the path's shape, with the L2 flushed before each call."""
+    ragged inside a tile, full; group 12 as starcoder2-3b, 2 as internlm2, 8
+    as qwen3-moe and 3 as granite-moe; D 64 and 128): bf16 on the
+    tensor-core kernel, f32 on the CUDA-core one. Then each timed at
+    starcoder2-3b's last decode step and at two longer caches, and the
+    tensor-core one at the MoE paths' last steps, beside the plain version
+    and SDPA with a length mask; the tensor-core one also beside the
+    CUDA-core kernel on the same bf16 call and, at starcoder2-3b's shape,
+    with the L2 flushed before each call."""
     import torch.nn.functional as F
     from repro_torch.kernels import decode_attention as decode_mod
     from repro_torch.kernels import ref
@@ -556,18 +587,25 @@ def decode_kernel_phase(torch) -> list[dict]:
     s = 1500
     lengths = torch.tensor([1, 1061, s], dtype=torch.int32, device=dev)
     for dtype in (torch.float32, torch.bfloat16):
-        for hq, hkv in ((24, 2), (16, 8)):
+        for hq, hkv in ((24, 2), (16, 8), (32, 4), (24, 8)):  # groups 12, 2, 8, 3
             for d in (64, 128):
                 q, k, v = inputs(3, hq, hkv, s, d, dtype)
                 checked(q, k, v, lengths, f"B=3 Hq={hq} Hkv={hkv} S={s} D={d} "
                                           f"{str(dtype)[6:]} lengths={lengths.tolist()}")
 
     timings = {decode_mod.MMA: [], decode_mod.CUDA_CORE: []}
-    for b, s, n in ((8, 2048, 1088), (8, 8192, 8192), (1, 32768, 32768)):
-        for dtype in (torch.bfloat16, torch.float32):
-            q, k, v = inputs(b, 24, 2, s, 128, dtype)
+    both = (torch.bfloat16, torch.float32)
+    # starcoder2-3b's path and two longer caches; then the MoE paths, bf16:
+    # qwen3 (group 8) after 64 steps, granite (group 3) after 16
+    for b, s, n, hq, hkv, dd, dtypes in (
+            (8, 2048, 1088, 24, 2, 128, both), (8, 8192, 8192, 24, 2, 128, both),
+            (1, 32768, 32768, 24, 2, 128, both),
+            (8, 2048, 1088, 32, 4, 128, both[:1]), (8, 2048, 1040, 24, 8, 64, both[:1])):
+        for dtype in dtypes:
+            q, k, v = inputs(b, hq, hkv, s, dd, dtype)
             lens = torch.full((b,), n, dtype=torch.int32, device=dev)
-            shape = f"q [{b},24,128], k/v [{b},{s},2,128] {str(dtype)[6:]}, length {n}"
+            shape = (f"q [{b},{hq},{dd}], k/v [{b},{s},{hkv},{dd}] {str(dtype)[6:]}, "
+                     f"length {n}")
             kernel, exp = checked(q, k, v, lens, shape)
             kt, vt = (t.transpose(1, 2).contiguous() for t in (k, v))  # [B, Hkv, S, D]
             mask = (torch.arange(s, device=dev) < lens[:, None])[:, None, None, :]
@@ -586,16 +624,16 @@ def decode_kernel_phase(torch) -> list[dict]:
                        host_ms=time_ms(torch, wrapper), library_host_ms=time_ms(torch, library),
                        device_us=device_us(torch, wrapper))
             # the valid cache read once, q read and the output written once
-            nbytes = (2 * b * n * 2 * 128 + 2 * q.numel()) * q.element_size() + b * 4
+            nbytes = (2 * b * n * hkv * dd + 2 * q.numel()) * q.element_size() + b * 4
             row["bound_ms"], row["bound_by"] = bound(
-                4.0 * b * 24 * n * 128, nbytes,
+                4.0 * b * hq * n * dd, nbytes,
                 PEAK_BF16 if dtype == torch.bfloat16 else PEAK_F32)
             extra = ""
             if kernel == decode_mod.MMA:  # the CUDA-core kernel on the same bf16 call
                 row["cuda_core_ms"] = time_ms(torch, lambda: cuda_core_decode(
                     torch, decode_mod, q, k, v, lens), queued=True)
                 extra = f", CUDA-core kernel {row['cuda_core_ms']:.4f} ms"
-                if s == LM_CAPACITY:
+                if (s, hq, hkv) == (LM_CAPACITY, 24, 2):
                     row["cold_l2_ms"] = time_cold_ms(torch, wrapper)
                     row["cuda_core_cold_l2_ms"] = time_cold_ms(torch, lambda: cuda_core_decode(
                         torch, decode_mod, q, k, v, lens))
@@ -605,7 +643,7 @@ def decode_kernel_phase(torch) -> list[dict]:
                   f"{plain:.4f} ms, sdpa(enable_gqa, mask) {lib:.4f} ms ({ms / lib:.2f}x; "
                   f"max|sdpa-plain|={lib_err:.2e}), bound {row['bound_ms']:.4f} ms "
                   f"({row['bound_by']}, {nbytes / 1e6:.1f} MB), splits "
-                  f"{decode_mod.n_splits(b, 24, 2, s, kernel)}{extra}; back to back from the "
+                  f"{decode_mod.n_splits(b, hq, hkv, s, kernel)}{extra}; back to back from the "
                   f"host: kernel {row['host_ms']:.4f} ms, sdpa {row['library_host_ms']:.4f} ms; "
                   f"on the card per launch (profiler): {fmt_us(row['device_us'])}")
             timings[kernel].append(row)
@@ -804,6 +842,32 @@ def batch_phase(torch, cfg, params, images) -> dict[str, int]:
     return {name: counts[name] + bucket_counts[name] for name in counts}
 
 
+def vit_forward_phase(torch, cfg, params) -> dict[str, int]:
+    """The vanilla ViT-L@384 (``vit.forward``: all 24 blocks, no merging; the
+    baseline Janus is measured against) in bf16 on 8 random images: one
+    tensor-core flash launch a layer, nothing else, finite logits."""
+    from repro_torch.models import vit
+
+    images = torch.randn((8, cfg.img_res, cfg.img_res, 3), device="cuda",
+                         generator=torch.Generator(device="cuda").manual_seed(4))
+    vit.forward(params, cfg, images)  # warm-up
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    logits = vit.forward(params, cfg, images)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    counts = read_counts()
+    exp = {"flash_attention_mma": cfg.n_layers, "flash_attention": 0, "tome_scores": 0,
+           "decode_attention_mma": 0, "decode_attention": 0}
+    print(f"[vit forward] ViT-L@384 bf16 vit.forward B=8: {ms:.2f} ms, logits "
+          f"{tuple(logits.shape)}, launches {counts} (implies {exp})")
+    check(tuple(logits.shape) == (8, cfg.n_classes), "vit.forward logits shape")
+    check(bool(torch.isfinite(logits).all()), "non-finite vit.forward logits")
+    check(counts == exp, "vit.forward launch counts")
+    return counts
+
+
 # ----------------------------------------------------------------------- trace
 
 def trace_phase(torch, cfg, params, images) -> None:
@@ -828,43 +892,87 @@ PORT_KERNEL = re.compile(r"\b(flash_mma_fwd|flash_fwd|tome_scores|decode_mma_par
                          r"decode_mma_combine|decode_partial|decode_combine)_kernel\b")
 
 
-def profile_once(torch, label: str, fn) -> None:
+MOE_RANGE = "moe.apply"
+
+
+def profile_once(torch, label: str, fn, moe_split: bool = False) -> None:
     """torch.profiler over one call of ``fn`` after one warm call: prints the
     wall time, the sum of kernel time on the card, the idle share, the top 8
-    kernels and every other kernel of the port as ``[trace]`` lines."""
-    from torch.profiler import ProfilerActivity, profile
+    kernels and every other kernel of the port as ``[trace]`` lines. With
+    ``moe_split`` each ``moe.apply`` call runs inside a profiler range, and
+    a line splits the kernel time under those ranges into the expert GEMMs
+    (the ``bmm`` calls of ``apply`` itself) and the rest of the MoE layer
+    (router, top-k sort, positions, scatter, gathers, SwiGLU, combine)."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.models import moe
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    report_profile(label, prof, wall_ms)
+    apply = moe.apply
+
+    def ranged(*args, **kw):
+        with record_function(MOE_RANGE):
+            return apply(*args, **kw)
+
+    if moe_split:
+        moe.apply = ranged
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        moe.apply = apply
+    busy_ms = report_profile(label, prof, wall_ms)
+    if moe_split:
+        report_moe_split(label, prof, busy_ms)
 
 
-def report_profile(label: str, prof, wall_ms: float) -> None:
+def report_moe_split(label: str, prof, busy_ms: float) -> None:
+    from torch.autograd import DeviceType
+
+    spans = [ev for ev in prof.events()
+             if ev.name == MOE_RANGE and ev.device_type == DeviceType.CPU]
+    moe_ms = sum(ev.device_time_total for ev in spans) / 1e3
+    gemm_ms = sum(ch.device_time_total for ev in spans for ch in ev.cpu_children
+                  if ch.name == "aten::bmm") / 1e3
+    if not spans or moe_ms == 0 or not busy_ms:
+        print(f"[trace] {label}: MoE layers' kernel time not measured ({len(spans)} "
+              "ranges; the profiler linked no kernel to them)")
+        return
+    print(f"[trace] {label}: MoE layers {moe_ms:.3f} ms of {busy_ms:.3f} ms kernel time "
+          f"({moe_ms / busy_ms:.3f}) in {len(spans)} calls: expert GEMMs {gemm_ms:.3f} ms "
+          f"({gemm_ms / busy_ms:.3f}), dispatch and the rest {moe_ms - gemm_ms:.3f} ms "
+          f"({(moe_ms - gemm_ms) / busy_ms:.3f})")
+
+
+def report_profile(label: str, prof, wall_ms: float) -> float:
     """The ``[trace]`` lines of one profiled window: wall, kernel time on the
-    card, launches, idle share, the top 8 kernels and the port's own."""
+    card, launches, idle share, the top 8 kernels and the port's own.
+    Returns the kernel time, ms."""
     from torch.autograd import DeviceType
 
     kernels: dict[str, list[float]] = {}
     for ev in prof.events():
-        if ev.device_type == DeviceType.CUDA:
+        # a profiler range (moe.apply) also appears on the card's timeline,
+        # spanning its kernels: it is not a kernel
+        if ev.device_type == DeviceType.CUDA and ev.name != MOE_RANGE:
             kernels.setdefault(ev.name, []).append(ev.time_range.elapsed_us() / 1e3)
     busy_ms = sum(sum(v) for v in kernels.values())
     n = sum(len(v) for v in kernels.values())
     if n == 0:
         print(f"[trace] {label}: wall {wall_ms:.2f} ms; the profiler saw no kernel on "
               "the card (device time not measured)")
-        return
+        return 0.0
     print(f"[trace] {label}: wall {wall_ms:.2f} ms, kernels on the card {busy_ms:.2f} ms "
           f"in {n} launches, idle share {1 - busy_ms / wall_ms:.3f}")
     ranked = sorted(kernels.items(), key=lambda kv: -sum(kv[1]))
     for i, (name, ts) in enumerate(ranked):  # the top 8, then the port's own kernels
         if i < 8 or PORT_KERNEL.search(name):
             print(f"[trace]   {sum(ts):8.3f} ms {len(ts):5d}x  {name[:90]}")
+    return busy_ms
 
 
 # ----------------------------------------------------------------------- fleet
@@ -1131,7 +1239,11 @@ def fleet_phase(torch, cfg, params, images) -> tuple[dict[str, int], dict[str, i
 
 # ---------------------------------------------------------------------- parity
 
-def parity_phase(torch) -> dict[str, int]:
+def parity_phase(torch) -> tuple[dict[str, int], dict[str, int]]:
+    """ViT-L@384 in f32 on the card, through the kernels against the plain
+    versions: ``vit.forward_janus`` at alpha 0.27 (logits, and the merge
+    indices of every merge layer), then the vanilla ``vit.forward``. Returns
+    the launch counts of the two kernel runs."""
     from repro_torch.core import pruning, tome
     from repro_torch.kernels import ops
     from repro_torch.models import vit
@@ -1193,36 +1305,70 @@ def parity_phase(torch) -> dict[str, int]:
     check(counts == {"flash_attention_mma": 0, "flash_attention": cfg.n_layers,
                      "tome_scores": n_merge, "decode_attention_mma": 0, "decode_attention": 0},
           "f32 ViT launch counts")
-    return counts
+
+    zero_counts()
+    forward_k = vit.forward(params, cfg, images)
+    forward_counts = read_counts()
+    with ops.plain_versions():
+        forward_p = vit.forward(params, cfg, images)
+    torch.cuda.synchronize()
+    err = (forward_k - forward_p).abs().max().item()
+    ok = torch.allclose(forward_k, forward_p, **PARITY_F32)
+    exp = {"flash_attention_mma": 0, "flash_attention": cfg.n_layers, "tome_scores": 0,
+           "decode_attention_mma": 0, "decode_attention": 0}
+    print(f"[parity] ViT-L@384 f32 vit.forward B=1: kernels vs plain max|dlogits|={err:.3e} "
+          f"tol={PARITY_F32}, launches of the kernel run {forward_counts} (implies {exp}) "
+          f"{'ok' if ok else 'FAIL'}")
+    check(ok, "f32 vit.forward parity failed")
+    check(forward_counts == exp, "f32 vit.forward launch counts")
+    return counts, forward_counts
 
 
 # -------------------------------------------------------------------------- lm
 
 LM_BATCH, LM_PROMPT, LM_STEPS, LM_CAPACITY = 8, 1024, 64, 2048
+# the MoE prefills' flash calls, GQA repeated outside: (label, heads, head dim)
+MOE_PREFILL = (("qwen3 prefill causal", 32, 128), ("granite prefill causal", 24, 64))
 
 
-def _starcoder2(torch, dtype):
-    from repro_torch.configs import starcoder2_3b
+def _lm(torch, module, dtype, **replace):
+    """A model of the port's LM family at its CONFIG's widths, random weights
+    drawn on the card from seed 0 (``replace`` cuts depth or sets options)."""
     from repro_torch.models import lm, param
-    cfg = dataclasses.replace(starcoder2_3b.CONFIG, dtype=dtype)
+    cfg = dataclasses.replace(module.CONFIG, dtype=dtype, **replace)
     gen = torch.Generator(device="cuda").manual_seed(0)
     return cfg, param.init_params(lm.specs(cfg), gen, "cuda", dtype=dtype)
 
 
-def lm_phase(torch) -> dict[str, int]:
-    """starcoder2-3b bf16 serving: prefill of 8 x 1024 random tokens into a
-    cache of capacity 2048, then 64 greedy decode steps, each closed by a
-    synchronize; the launch counters are zeroed just before and read just
-    after. Then torch.profiler over one decode step and over the prefill."""
+def _cache_buffers(cache) -> list:
+    return list(cache.values()) if isinstance(cache, dict) else [
+        t for layer in cache for t in layer.values()]
+
+
+def _describe(cfg) -> str:
+    moe = cfg.moe
+    ffn = (f"{moe.n_experts} experts (padded to {moe.e_pad}) top-{moe.top_k} of d_ff "
+           f"{moe.d_ff}, groups of {moe.group_size}" if moe else f"d_ff={cfg.d_ff}")
+    return (f"{cfg.n_layers} layers, d={cfg.d_model}, {cfg.n_heads} q heads over {cfg.n_kv} kv "
+            f"heads of {cfg.hd}{', qk-norm' if cfg.qk_norm else ''}, {ffn}, vocab={cfg.vocab}; "
+            f"cache {cfg.cache_layout}, {str(cfg.cache_dtype)[6:]}")
+
+
+def serve_phase(torch, tag: str, name: str, cfg, params, steps: int) -> tuple[dict, dict]:
+    """LM serving through ``lm.prefill`` and ``lm.decode_step``: prefill of
+    8 x 1024 random tokens into a cache of capacity 2048, then ``steps``
+    greedy decode steps, each closed by a synchronize; the launch counters
+    are zeroed just before and read just after, and must be exactly one
+    tensor-core flash launch a layer and one tensor-core decode launch a
+    layer and step. Returns (counts, state for a trace: the last token and
+    the cache)."""
     from repro_torch.models import lm, param
 
-    cfg, params = _starcoder2(torch, torch.bfloat16)
     weights_gb = sum(t.numel() * t.element_size() for t in param.flatten(params).values()) / 1e9
     tokens = torch.randint(0, cfg.vocab, (LM_BATCH, LM_PROMPT), dtype=torch.int32, device="cuda",
                            generator=torch.Generator(device="cuda").manual_seed(1))
-    print(f"[lm] starcoder2-3b bf16: {cfg.n_layers} layers, d={cfg.d_model}, {cfg.n_heads} q "
-          f"heads over {cfg.n_kv} kv heads of {cfg.hd}, d_ff={cfg.d_ff}, vocab={cfg.vocab}; "
-          f"weights {weights_gb:.3f} GB on {torch.cuda.get_device_name(0)}")
+    print(f"[{tag}] {name} {str(cfg.dtype)[6:]}: {_describe(cfg)}; weights {weights_gb:.3f} GB "
+          f"on {torch.cuda.get_device_name(0)}")
     # warm-up outside the counted run: cuBLAS handles, allocator, kernel libraries
     logits, cache = lm.prefill(params, cfg, tokens[:, :64], max_len=128)
     lm.decode_step(params, cfg, logits.argmax(-1).int(), cache, 64)
@@ -1238,7 +1384,7 @@ def lm_phase(torch) -> dict[str, int]:
     prefill_ms = (time.perf_counter() - t0) * 1e3
     tok = logits[:, -1].argmax(-1, keepdim=True).int()
     finite, step_ms = [torch.isfinite(logits).all()], []
-    for i in range(LM_STEPS):
+    for i in range(steps):
         t0 = time.perf_counter()
         logits, cache = lm.decode_step(params, cfg, tok, cache, LM_PROMPT + i)
         tok = logits[:, -1].argmax(-1, keepdim=True).int()
@@ -1248,28 +1394,84 @@ def lm_phase(torch) -> dict[str, int]:
     counts = read_counts()
 
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    steps = sorted(step_ms)
-    print(f"[lm] prefill B={LM_BATCH} x {LM_PROMPT} tokens into a cache of {LM_CAPACITY} "
-          f"({cache['k'].numel() * 2 * cache['k'].element_size() / 1e6:.0f} MB): "
-          f"{prefill_ms:.2f} ms ({LM_BATCH * LM_PROMPT / prefill_ms * 1e3:.0f} prompt tokens/s)")
-    print(f"[lm] decode {LM_STEPS} greedy steps of B={LM_BATCH} (cache length "
-          f"{LM_PROMPT + 1}..{LM_PROMPT + LM_STEPS}): per step median "
-          f"{steps[len(steps) // 2]:.2f} ms, max {steps[-1]:.2f} ms, first {step_ms[0]:.2f} ms; "
-          f"{LM_BATCH * LM_STEPS / sum(step_ms) * 1e3:.1f} generated tokens/s")
-    print(f"[lm] weights {weights_gb:.3f} GB, max_memory_allocated {peak_gb:.3f} GB")
+    buffers = _cache_buffers(cache)
+    ordered = sorted(step_ms)
+    print(f"[{tag}] prefill B={LM_BATCH} x {LM_PROMPT} tokens into a cache of {LM_CAPACITY} "
+          f"({sum(t.numel() * t.element_size() for t in buffers) / 1e6:.0f} MB in "
+          f"{len(buffers)} buffers): {prefill_ms:.2f} ms "
+          f"({LM_BATCH * LM_PROMPT / prefill_ms * 1e3:.0f} prompt tokens/s)")
+    print(f"[{tag}] decode {steps} greedy steps of B={LM_BATCH} (cache length "
+          f"{LM_PROMPT + 1}..{LM_PROMPT + steps}): per step median "
+          f"{ordered[len(ordered) // 2]:.2f} ms, max {ordered[-1]:.2f} ms, first "
+          f"{step_ms[0]:.2f} ms; {LM_BATCH * steps / sum(step_ms) * 1e3:.1f} generated tokens/s")
+    print(f"[{tag}] step ms: {' '.join(f'{t:.2f}' for t in step_ms)}")
+    print(f"[{tag}] weights {weights_gb:.3f} GB, max_memory_allocated {peak_gb:.3f} GB")
     exp = {"flash_attention_mma": cfg.n_layers, "flash_attention": 0,
-           "decode_attention_mma": cfg.n_layers * LM_STEPS, "decode_attention": 0,
+           "decode_attention_mma": cfg.n_layers * steps, "decode_attention": 0,
            "tome_scores": 0}
-    print(f"[lm] launches: {counts} (prefill and {LM_STEPS} steps imply {exp})")
-    check(tuple(logits.shape) == (LM_BATCH, 1, cfg.vocab), "decode logits shape")
-    check(bool(torch.stack(finite).all()), "non-finite LM logits")
-    check(counts == exp, "LM path launch counts")
+    print(f"[{tag}] launches: {counts} (prefill and {steps} steps imply {exp})")
+    check(tuple(logits.shape) == (LM_BATCH, 1, cfg.vocab), f"{name} decode logits shape")
+    check(bool(torch.stack(finite).all()), f"non-finite {name} logits")
+    check(all(t.dtype == cfg.cache_dtype for t in buffers), f"{name} cache dtype")
+    check(counts == exp, f"{name} launch counts")
+    return counts, {"tok": tok, "cache": cache, "tokens": tokens, "steps": steps}
 
-    profile_once(torch, f"lm decode step B={LM_BATCH} at cache length {LM_PROMPT + LM_STEPS + 1}",
-                 lambda: lm.decode_step(params, cfg, tok, cache, LM_PROMPT + LM_STEPS))
+
+def trace_serving(torch, tag: str, cfg, params, state: dict, moe_split: bool = False) -> None:
+    """torch.profiler over one decode step at the next cache position, then
+    (the cache freed) over the prefill; ``moe_split`` splits the MoE layers'
+    kernel time (``profile_once``)."""
+    from repro_torch.models import lm
+
+    index = LM_PROMPT + state["steps"]
+    tok, cache, tokens = state.pop("tok"), state.pop("cache"), state.pop("tokens")
+    profile_once(torch, f"{tag} decode step B={LM_BATCH} at cache length {index + 1}",
+                 lambda: lm.decode_step(params, cfg, tok, cache, index), moe_split)
     del cache
-    profile_once(torch, f"lm prefill B={LM_BATCH} x {LM_PROMPT} tokens",
-                 lambda: lm.prefill(params, cfg, tokens, max_len=LM_CAPACITY))
+    profile_once(torch, f"{tag} prefill B={LM_BATCH} x {LM_PROMPT} tokens",
+                 lambda: lm.prefill(params, cfg, tokens, max_len=LM_CAPACITY), moe_split)
+
+
+def lm_phase(torch) -> dict[str, int]:
+    """starcoder2-3b bf16 serving (``serve_phase``, 64 steps), then
+    torch.profiler over one decode step and over the prefill."""
+    from repro_torch.configs import starcoder2_3b
+
+    cfg, params = _lm(torch, starcoder2_3b, torch.bfloat16)
+    counts, state = serve_phase(torch, "lm", "starcoder2-3b", cfg, params, LM_STEPS)
+    trace_serving(torch, "lm", cfg, params, state)
+    return counts
+
+
+def moe_phase(torch) -> tuple[dict[str, int], dict[str, int]]:
+    """qwen3-moe-30b-a3b bf16 at all 48 layers and full widths (61 GB of
+    weights on the card): ``serve_phase`` with 64 steps on the stacked bf16
+    cache, traced, then (``moe_cache``) the same weights on the per-layer
+    int8 cache (scale 0.05) for 16 steps."""
+    from repro_torch.configs import qwen3_moe_30b_a3b
+
+    t0 = time.perf_counter()
+    cfg, params = _lm(torch, qwen3_moe_30b_a3b, torch.bfloat16)
+    torch.cuda.synchronize()
+    print(f"[moe] qwen3-moe-30b-a3b init on the card: {time.perf_counter() - t0:.1f} s, "
+          f"max_memory_allocated {torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+    counts, state = serve_phase(torch, "moe", "qwen3-moe-30b-a3b", cfg, params, LM_STEPS)
+    trace_serving(torch, "moe qwen3", cfg, params, state, moe_split=True)
+    torch.cuda.empty_cache()
+    cache_cfg = dataclasses.replace(cfg, cache_layout="per_layer", cache_quant_scale=0.05)
+    cache_counts, state = serve_phase(torch, "moe_cache", "qwen3-moe-30b-a3b", cache_cfg, params,
+                                      16)
+    check(len(state["cache"]) == cfg.n_layers, "per-layer cache: one buffer pair a layer")
+    return counts, cache_counts
+
+
+def granite_phase(torch) -> dict[str, int]:
+    """granite-moe-3b-a800m bf16 at full size (32 layers, experts padded
+    40 -> 48, D=64, tied embeddings): ``serve_phase`` with 16 steps."""
+    from repro_torch.configs import granite_moe_3b_a800m
+
+    cfg, params = _lm(torch, granite_moe_3b_a800m, torch.bfloat16)
+    counts, _ = serve_phase(torch, "moe", "granite-moe-3b-a800m", cfg, params, 16)
     return counts
 
 
@@ -1281,7 +1483,9 @@ def lm_parity_phase(torch) -> dict[str, int]:
     from repro_torch.kernels import ops
     from repro_torch.models import lm
 
-    cfg, params = _starcoder2(torch, torch.float32)
+    from repro_torch.configs import starcoder2_3b
+
+    cfg, params = _lm(torch, starcoder2_3b, torch.float32)
     prompt, steps = 256, 8
     tokens = torch.randint(0, cfg.vocab, (2, prompt + steps), dtype=torch.int32, device="cuda",
                            generator=torch.Generator(device="cuda").manual_seed(2))
@@ -1318,6 +1522,181 @@ def lm_parity_phase(torch) -> dict[str, int]:
     check(ok, "f32 LM parity failed")
     check(counts == exp, "f32 LM launch counts")
     return counts
+
+
+NEAR_TIE = 1e-5   # a route flip where the plain run's top-k margin is below this: a near-tie
+INT8_NEAR = 1e-3  # an int8 flip must lie this close to a rounding boundary (|x/scale|)
+
+
+def moe_parity_phase(torch) -> tuple[dict[str, int], dict[str, int]]:
+    """qwen3-moe-30b-a3b in f32 on the card, cut to 4 of its 48 layers at
+    full widths (12.5 GB; all 48 in f32 would take 122 GB), through the
+    kernels against the plain versions: prefill of 2 x 256 tokens, then 8
+    teacher-forced steps, once on the stacked f32 cache and once on the
+    per-layer int8 cache (scale 0.05).
+
+    Routes first: the top-k experts of every token at every layer and call.
+    A route that differs where the plain run's margin between the k-th and
+    (k+1)-th router probability is under ``NEAR_TIE`` is a near-tie: it is
+    printed with its margin, and that run's logits are not compared. Any
+    other route difference fails. With identical routes, the logits of the
+    prefill and of every step are held to ``PARITY_F32``. On the int8 cache
+    an entry may be one step apart where its unrounded ``|x/scale|`` lies
+    within ``INT8_NEAR`` of a rounding boundary; the entries written after
+    the first such flip are downstream of it and not judged (counted)."""
+    from repro_torch.configs import qwen3_moe_30b_a3b
+    from repro_torch.kernels import ops
+    from repro_torch.models import layers, lm, moe, param
+
+    cfg, params = _lm(torch, qwen3_moe_30b_a3b, torch.float32, n_layers=4)
+    weights_gb = sum(t.numel() * t.element_size()
+                     for t in param.flatten(params).values()) / 1e9
+    prompt, steps, n_layers = 256, 8, cfg.n_layers
+    tokens = torch.randint(0, cfg.vocab, (2, prompt + steps), dtype=torch.int32, device="cuda",
+                           generator=torch.Generator(device="cuda").manual_seed(2))
+    route, quantize = moe.route, layers._quantize
+
+    def run(c):
+        """Logits of the prefill and of each step, the cache, the routes
+        ((experts, the top-k margin) a token, per call) and the int8
+        entries' unrounded ``x / scale`` in write order."""
+        routes, unrounded = [], []
+
+        def recording_route(mcfg, logits):
+            gates, experts = route(mcfg, logits)
+            probs = torch.softmax(logits.to(mcfg.router_dtype), dim=-1)
+            top = probs.sort(dim=-1, descending=True).values
+            margin = top[..., mcfg.top_k - 1] - top[..., mcfg.top_k]
+            routes.append((experts.reshape(-1, mcfg.top_k), margin.reshape(-1)))
+            return gates, experts
+
+        def recording_quantize(t, scale, dtype):
+            if scale is not None:
+                unrounded.append(t.float() / scale)
+            return quantize(t, scale, dtype)
+
+        moe.route, layers._quantize = recording_route, recording_quantize
+        try:
+            logits, cache = lm.prefill(params, c, tokens[:, :prompt], max_len=prompt + steps)
+            out = [logits]
+            for i in range(steps):
+                logits, cache = lm.decode_step(params, c, tokens[:, prompt + i:prompt + i + 1],
+                                               cache, prompt + i)
+                out.append(logits)
+        finally:
+            moe.route, layers._quantize = route, quantize
+        return out, cache, routes, unrounded
+
+    def stacked(cache):
+        if isinstance(cache, dict):
+            return cache["k"], cache["v"]
+        return tuple(torch.stack([layer[n] for layer in cache]) for n in "kv")
+
+    def shadow(unrounded):
+        """[L, B, S, kv, hd] of the unrounded k and v, from the write order:
+        the prefill's k, v a layer, then each step's k, v a layer."""
+        it = iter(unrounded)
+        out = [torch.zeros((n_layers, 2, prompt + steps, cfg.n_kv, cfg.hd), device="cuda")
+               for _ in "kv"]
+        for l in range(n_layers):
+            for buf in out:
+                buf[l, :, :prompt] = next(it)
+        for i in range(steps):
+            for l in range(n_layers):
+                for buf in out:
+                    buf[l, :, prompt + i] = next(it)
+        return out
+
+    print(f"[moe_parity] qwen3-moe-30b-a3b f32: {_describe(cfg)} (cut from 48 layers: 48 in "
+          f"f32 need 122 GB); weights {weights_gb:.3f} GB; B=2, prompt {prompt} + {steps} "
+          f"teacher-forced steps")
+    all_counts = []
+    for label, c in (("stacked f32 cache", cfg),
+                     ("per-layer int8 cache", dataclasses.replace(
+                         cfg, cache_layout="per_layer", cache_quant_scale=0.05))):
+        t0 = time.perf_counter()
+        zero_counts()
+        lk, ck, rk, uk = run(c)
+        counts = read_counts()
+        with ops.plain_versions():
+            lp, cp, rp, _ = run(c)
+        torch.cuda.synchronize()
+        check(len(rk) == len(rp) == n_layers * (1 + steps), f"{label}: routes recorded")
+
+        near_tie, downstream = None, 0
+        for call, ((ek, _), (ep, margin)) in enumerate(zip(rk, rp)):
+            differ = (ek != ep).any(dim=-1)
+            if not bool(differ.any()):
+                continue
+            if near_tie is not None:
+                downstream += int(differ.sum())
+                continue
+            where = "prefill" if call < n_layers else f"step {call // n_layers - 1}"
+            for token, m in zip(differ.nonzero()[:, 0].tolist(), margin[differ].tolist()):
+                print(f"[moe_parity] {label}: {where} layer {call % n_layers} token {token}: "
+                      f"route differs, plain top-k margin {m:.3e}")
+                check(m < NEAR_TIE, f"{label}: a route differs away from a near-tie "
+                                    f"(margin {m:.3e} >= {NEAR_TIE})")
+            near_tie = call
+        n_routes = sum(e.shape[0] for e, _ in rk)
+
+        errs = [(a - b).abs().max().item() for a, b in zip(lk, lp)]
+        (kk, vk), (kp, vp) = stacked(ck), stacked(cp)
+        if c.cache_quant_scale is None:
+            cache_err = max((kk - kp).abs().max().item(), (vk - vp).abs().max().item())
+            cache_ok = (torch.allclose(kk, kp, **PARITY_F32)
+                        and torch.allclose(vk, vp, **PARITY_F32))
+            cache_note = f"max|dcache| {cache_err:.3e}"
+        else:
+            flips = int((kk != kp).sum() + (vk != vp).sum())
+            judged, first_flip = judged_entries(kk != kp, vk != vp, prompt)
+            cache_ok = True
+            for a, b, x in zip((kk, vk), (kp, vp), shadow(uk)):
+                differ = (a != b) & judged[:, None, :, None, None]
+                step = (a.int() - b.int()).abs()[differ]
+                gap = ((x.abs() % 1.0) - 0.5).abs()[differ]
+                cache_ok = cache_ok and bool((step == 1).all()) and bool((gap < INT8_NEAR).all())
+            cache_note = (f"int8 entries one step apart {flips} of "
+                          f"{kk.numel() + vk.numel()}, first at position {first_flip} "
+                          f"(one step, within {INT8_NEAR} of a rounding boundary: {cache_ok})")
+        if near_tie is not None:
+            logits_ok = True
+            verdict = (f"near-tie at call {near_tie} ({downstream} route differences "
+                       "downstream of it): logits not compared")
+        else:
+            logits_ok = all(torch.allclose(a, b, **PARITY_F32) for a, b in zip(lk, lp))
+            verdict = f"routes identical ({n_routes} token-layers)"
+        ok = logits_ok and cache_ok
+        print(f"[moe_parity] {label}: kernels vs plain: {verdict}; max|dlogits| prefill "
+              f"{errs[0]:.3e}, steps {' '.join(f'{e:.2e}' for e in errs[1:])}; {cache_note}; "
+              f"tol={PARITY_F32}; |logits| max {lp[-1].abs().max().item():.2f}; "
+              f"{time.perf_counter() - t0:.1f} s {'ok' if ok else 'FAIL'}")
+        exp = {"flash_attention_mma": 0, "flash_attention": n_layers,
+               "decode_attention_mma": 0, "decode_attention": n_layers * steps,
+               "tome_scores": 0}
+        print(f"[moe_parity] {label}: launches of the kernel run: {counts} (implies {exp})")
+        check(ok, f"qwen3 f32 MoE parity failed ({label})")
+        check(counts == exp, f"qwen3 f32 MoE launch counts ({label})")
+        all_counts.append(counts)
+        del lk, ck, lp, cp, rk, rp, uk
+    return all_counts[0], all_counts[1]
+
+
+def judged_entries(differ_k, differ_v, prompt: int):
+    """Which int8 cache positions, per layer, are not downstream of a flip:
+    ([L, S] bool, the first flipped position, or S). Prefill entries never
+    are (the prefill attends over unquantized k/v). A decode step's entries
+    are downstream of every flip at an earlier position, and of one at its
+    own position in an earlier layer."""
+    flip_at = (differ_k | differ_v).any(dim=4).any(dim=3).any(dim=1)  # [L, S]
+    n_layers, s = flip_at.shape
+    positions = flip_at.any(dim=0).nonzero()[:, 0]
+    first = int(positions.min()) if positions.numel() else s
+    judged = flip_at.new_zeros(flip_at.shape)
+    judged[:, :max(prompt, first)] = True
+    if prompt <= first < s:
+        judged[:int(flip_at[:, first].nonzero()[:, 0].min()) + 1, first] = True
+    return judged, first
 
 
 if __name__ == "__main__":

@@ -405,7 +405,7 @@ def main(argv=None):
     if args.mesh or args.mesh_model != 1:
         raise NotImplementedError(
             "--mesh/--mesh-model: mesh-sharded execution is not ported yet "
-            "(ROADMAP.md queue 1 item 10, sharding)")
+            "(ROADMAP.md queue 1 item 3, sharding)")
 
     if args.streams <= 0 and not args.workload:
         # classic single-stream mode: fail loudly instead of silently

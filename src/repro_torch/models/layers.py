@@ -1,4 +1,4 @@
-"""Model building blocks in PyTorch (the ViT and dense-LM subset of
+"""Model building blocks in PyTorch (the ViT and LM subset of
 ``repro.models.layers``).
 
 Plain functions on tensors and nested dicts of parameters, in the
@@ -185,12 +185,26 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.transpose(1, 2)
 
 
+def _quantize(t: torch.Tensor, scale: float | None, dtype: torch.dtype) -> torch.Tensor:
+    """``t`` as a cache entry: cast to ``dtype``, or int8 steps of ``scale``
+    (round half to even, as ``jnp.round``) when a scale is set."""
+    if scale is None:
+        return t.to(dtype)
+    return torch.clamp(torch.round(t.float() / scale), -127, 127).to(torch.int8)
+
+
+def _dequantize(cache: torch.Tensor, scale: float | None, dtype: torch.dtype) -> torch.Tensor:
+    if scale is None:
+        return cache.to(dtype)
+    return (cache.float() * scale).to(dtype)
+
+
 def attention(p: dict, x: torch.Tensor, *, n_heads: int, n_kv: int, head_dim: int,
               causal: bool = False, rope: bool = False, rope_theta: float = 10000.0,
               bias: torch.Tensor | None = None, return_metric: bool = False,
               kv_cache: tuple[torch.Tensor, torch.Tensor] | None = None,
               cache_index: int | None = None, kv_len: torch.Tensor | None = None,
-              return_kv: bool = False):
+              cache_quant_scale: float | None = None, return_kv: bool = False):
     """Attention over ``x`` [B, S, d]; returns ``(out, new_cache)``, plus the
     ToMe metric (mean of the keys over kv heads, [B, S, head_dim]) with
     ``return_metric``, as the reference.
@@ -203,6 +217,12 @@ def attention(p: dict, x: torch.Tensor, *, n_heads: int, n_kv: int, head_dim: in
       attention runs through the decode kernel over keys [0, cache_index]
       (``kv_len`` [B] int32 = cache_index + 1, built here if not given).
     - otherwise ``new_cache`` is None.
+
+    ``cache_quant_scale`` (int8 KV cache, as the reference): the cache holds
+    ``clip(round(k / scale), -127, 127)`` as int8. Prefill attends over the
+    unquantized k/v and returns them quantized; decode writes the quantized
+    k/v, then attends over the whole cache dequantized to the activation
+    dtype (``cache.float() * scale``).
     """
     b, s, _ = x.shape
     q, k, v = _qkv_proj(p, x, n_heads, n_kv, head_dim)
@@ -221,18 +241,18 @@ def attention(p: dict, x: torch.Tensor, *, n_heads: int, n_kv: int, head_dim: in
             raise ValueError(f"a cached call decodes one token, got {s}")
         k_cache, v_cache = kv_cache
         idx = 0 if cache_index is None else cache_index
-        k_cache[:, idx] = k[:, 0].to(k_cache.dtype)
-        v_cache[:, idx] = v[:, 0].to(v_cache.dtype)
+        k_cache[:, idx] = _quantize(k[:, 0], cache_quant_scale, k_cache.dtype)
+        v_cache[:, idx] = _quantize(v[:, 0], cache_quant_scale, v_cache.dtype)
         new_cache = (k_cache, v_cache)
         if kv_len is None:
             kv_len = torch.full((b,), idx + 1, dtype=torch.int32, device=x.device)
-        kc, vc = (c if c.dtype == q.dtype else c.to(q.dtype) for c in (k_cache, v_cache))
+        kc, vc = (_dequantize(c, cache_quant_scale, q.dtype) for c in (k_cache, v_cache))
         out = ops.decode_attention(q[:, 0], kc, vc, kv_len)
         if return_metric:
             k = kc
     else:
         if return_kv:
-            new_cache = (k, v)
+            new_cache = tuple(_quantize(t, cache_quant_scale, t.dtype) for t in (k, v))
         out = sdpa(q, k, v, bias=bias, causal=causal)
 
     y = out.reshape(b, s, n_heads * head_dim) @ p["wo"].to(out.dtype)

@@ -1,37 +1,45 @@
-"""Decoder-only transformer LM, dense part: PyTorch port of ``repro.models.lm``.
+"""Decoder-only transformer LM: PyTorch port of ``repro.models.lm``.
 
-Covers starcoder2-3b (LayerNorm + GELU MLP + biases, tied embeddings) and
-internlm2-1.8b (RMSNorm + SwiGLU, untied ``lm_head``): GQA with RoPE.
+Covers starcoder2-3b (LayerNorm + GELU MLP + biases, tied embeddings),
+internlm2-1.8b (RMSNorm + SwiGLU, untied ``lm_head``), qwen3-moe-30b-a3b
+(RMSNorm + SwiGLU experts, qk-norm) and granite-moe-3b-a800m (SwiGLU
+experts padded 40 -> 48): GQA with RoPE; MoE blocks through ``models.moe``.
 
-Two serving entry points, as the reference's ``launch/steps.py`` jits them:
+Entry points, as the reference's:
+  forward      causal forward over [B, S] -> (logits [B, S, V], MoE aux loss)
+  lm_loss      next-token cross entropy of those logits
   prefill      causal forward over a prompt that also fills the KV cache
                (attention through the flash kernel, causal)
-  decode_step  one token against the stacked [L, B, S_max, n_kv, hd] cache
-               (attention through the decode kernel)
+  decode_step  one token against the cache (attention through the decode
+               kernel)
 
-Layers run in a Python loop over the stacked ``blocks/*`` params (the
-reference scans them). Not ported yet: MoE, the int8 KV cache and the
-``per_layer`` cache layout (ROADMAP queue 1, items 11-12), and the training
-entry points ``forward``/``lm_loss`` (item 13).
+The cache is either ``stacked``, {"k", "v"} [L, B, S_max, n_kv, hd], or
+``per_layer``, a list of L {"k", "v"} [B, S_max, n_kv, hd] buffers; with
+``cache_quant_scale`` its entries are int8 steps of that scale. Layers run
+in a Python loop over the stacked ``blocks/*`` params (the reference scans
+them). Not ported: ``abstract_cache`` and ``cache_axes``, which serve the
+reference's sharding and ahead-of-time compilation (ROADMAP queue 1,
+item 3).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
 
 import torch
 
 from repro_torch.models import layers as L
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.param import flatten, layer_params, stack_specs
 from repro_torch.runtime.device import require_on, resolve_device
 
 
 @dataclasses.dataclass(frozen=True)
 class LMConfig:
-    """The reference's fields and defaults. ``remat``, ``aux_loss_coef``,
-    ``attn_chunk``, ``cache_reshard_per_layer`` and ``moe_impl`` concern
-    training, the chunked jnp attention, meshes or MoE; the port's serving
-    path accepts and ignores them."""
+    """The reference's fields and defaults. ``remat``, ``attn_chunk`` and
+    ``cache_reshard_per_layer`` concern training, the chunked jnp attention
+    or meshes; the port accepts and ignores them. ``moe_impl="a2a"`` needs a
+    mesh; without one the reference takes the gspmd path, and so does the
+    port, always."""
     n_layers: int
     d_model: int
     n_heads: int
@@ -45,25 +53,23 @@ class LMConfig:
     qk_norm: bool = False
     rope_theta: float = 10000.0
     tie_embeddings: bool = True
-    moe: Any = None
+    moe: moe_lib.MoEConfig | None = None
     dtype: torch.dtype = torch.bfloat16
     remat: bool = False
     aux_loss_coef: float = 0.01
     attn_chunk: int | None = 512
-    cache_quant_scale: float | None = None
+    cache_quant_scale: float | None = None  # int8 KV cache when set
     cache_reshard_per_layer: bool = False
-    cache_layout: str = "stacked"
-    moe_impl: str = "gspmd"
+    cache_layout: str = "stacked"   # "stacked" | "per_layer"
+    moe_impl: str = "gspmd"         # "gspmd" | "a2a"
 
     def __post_init__(self):
-        if self.moe is not None:
-            raise NotImplementedError("MoE LMs are not ported yet (ROADMAP queue 1, item 12)")
-        if self.cache_quant_scale is not None:
-            raise NotImplementedError("the int8 KV cache is not ported yet "
-                                      "(ROADMAP queue 1, item 11)")
-        if self.cache_layout != "stacked":
-            raise NotImplementedError(f"cache_layout={self.cache_layout!r} is not ported yet "
-                                      "(ROADMAP queue 1, item 11); use 'stacked'")
+        if self.cache_layout not in ("stacked", "per_layer"):
+            raise ValueError(f"cache_layout {self.cache_layout!r}; need 'stacked' or 'per_layer'")
+
+    @property
+    def cache_dtype(self) -> torch.dtype:
+        return torch.int8 if self.cache_quant_scale is not None else self.dtype
 
     @property
     def hd(self) -> int:
@@ -77,7 +83,9 @@ def _block_specs(cfg: LMConfig) -> dict:
                                   bias=cfg.attn_bias, qk_norm=cfg.qk_norm),
         "norm2": L.norm_specs(cfg.norm, cfg.d_model),
     }
-    if cfg.act == "swiglu":
+    if cfg.moe is not None:
+        p["moe"] = moe_lib.specs(cfg.moe)
+    elif cfg.act == "swiglu":
         p["ffn"] = L.swiglu_specs(cfg.d_model, cfg.d_ff)
     else:
         p["ffn"] = L.mlp_specs(cfg.d_model, cfg.d_ff, bias=cfg.attn_bias)
@@ -95,18 +103,31 @@ def specs(cfg: LMConfig) -> dict:
     return p
 
 
+def _ffn(bp: dict, cfg: LMConfig, x: torch.Tensor):
+    """(ffn(x), aux loss): the MoE layer's, or a dense FFN's and 0. Both
+    ``moe_impl`` values run ``moe.apply`` (the reference's a2a path needs a
+    mesh, and without one it takes this path too)."""
+    if cfg.moe is not None:
+        return moe_lib.apply(bp["moe"], cfg.moe, x)
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.act == "swiglu":
+        return L.swiglu(bp["ffn"], x), zero
+    return L.mlp(bp["ffn"], x), zero
+
+
 def _block(bp: dict, cfg: LMConfig, x: torch.Tensor, *, kv_cache=None,
            cache_index: int | None = None, kv_len: torch.Tensor | None = None,
            return_kv: bool = False):
-    """One layer: returns (x, new_cache) as ``layers.attention`` defines it."""
+    """One layer: returns (x, new_cache, aux) with ``new_cache`` as
+    ``layers.attention`` defines it."""
     attn_out, new_cache = L.attention(
         bp["attn"], L.norm(cfg.norm, bp["norm1"], x), n_heads=cfg.n_heads, n_kv=cfg.n_kv,
         head_dim=cfg.hd, causal=True, rope=True, rope_theta=cfg.rope_theta,
-        kv_cache=kv_cache, cache_index=cache_index, kv_len=kv_len, return_kv=return_kv)
+        kv_cache=kv_cache, cache_index=cache_index, kv_len=kv_len,
+        cache_quant_scale=cfg.cache_quant_scale, return_kv=return_kv)
     x = x + attn_out
-    h = L.norm(cfg.norm, bp["norm2"], x)
-    x = x + (L.swiglu(bp["ffn"], h) if cfg.act == "swiglu" else L.mlp(bp["ffn"], h))
-    return x, new_cache
+    ffn_out, aux = _ffn(bp, cfg, L.norm(cfg.norm, bp["norm2"], x))
+    return x + ffn_out, new_cache, aux
 
 
 def _logits(params: dict, cfg: LMConfig, x: torch.Tensor) -> torch.Tensor:
@@ -116,53 +137,92 @@ def _logits(params: dict, cfg: LMConfig, x: torch.Tensor) -> torch.Tensor:
     return L.linear(params["lm_head"], x)
 
 
+def forward(params: dict, cfg: LMConfig, tokens: torch.Tensor):
+    """tokens [B, S] -> (logits [B, S, V], aux loss: the sum of the MoE
+    layers' load-balancing losses, f32, 0 for a dense model)."""
+    require_on(tokens.device, {f"params/{k}": v for k, v in flatten(params).items()})
+    x = L.embed(params["embed"], tokens).to(cfg.dtype)
+    aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    for l in range(cfg.n_layers):
+        x, _, layer_aux = _block(layer_params(params, l), cfg, x)
+        aux = aux + layer_aux
+    return _logits(params, cfg, x), aux
+
+
+def lm_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Next-token cross entropy; logits [B, S, V], labels [B, S] (already
+    shifted)."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    ll = torch.gather(logp, -1, labels.long()[..., None])[..., 0]
+    return -ll.mean()
+
+
 def init_cache(cfg: LMConfig, batch: int, max_len: int, dtype=torch.bfloat16,
-               device=None) -> dict:
-    """Zeroed stacked cache {"k", "v"} [L, B, max_len, n_kv, hd] on
-    ``device`` (``cuda`` unless the caller passes ``device="cpu"``; raises if
-    no card is there)."""
-    shape = (cfg.n_layers, batch, max_len, cfg.n_kv, cfg.hd)
+               device=None):
+    """Zeroed cache in ``cfg.cache_layout``: {"k", "v"} [L, B, max_len, n_kv,
+    hd] (``stacked``) or a list of L {"k", "v"} [B, max_len, n_kv, hd]
+    (``per_layer``), on ``device`` (``cuda`` unless the caller passes
+    ``device="cpu"``; raises if no card is there). ``prefill`` passes
+    ``cfg.cache_dtype``."""
     device = resolve_device(device)
+    if cfg.cache_layout == "per_layer":
+        shape = (batch, max_len, cfg.n_kv, cfg.hd)
+        return [{"k": torch.zeros(shape, dtype=dtype, device=device),
+                 "v": torch.zeros(shape, dtype=dtype, device=device)}
+                for _ in range(cfg.n_layers)]
+    shape = (cfg.n_layers, batch, max_len, cfg.n_kv, cfg.hd)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
+def _layer_cache(cache, l: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Layer ``l``'s (k, v) [B, S_max, n_kv, hd] of either layout (views)."""
+    if isinstance(cache, dict):
+        return cache["k"][l], cache["v"][l]
+    return cache[l]["k"], cache[l]["v"]
+
+
 def prefill(params: dict, cfg: LMConfig, tokens: torch.Tensor, max_len: int | None = None):
     """Causal forward over ``tokens`` [B, S]; returns (last-position logits
-    [B, 1, V], cache). The cache holds the prompt's k/v in [0, S) and zeros
-    up to ``max_len`` (default S), in the activation dtype. Runs on the
-    device of ``tokens``; the params must lie there too."""
+    [B, 1, V], cache). The cache, in ``cfg.cache_layout`` and
+    ``cfg.cache_dtype``, holds the prompt's k/v in [0, S) and zeros up to
+    ``max_len`` (default S). Runs on the device of ``tokens``; the params
+    must lie there too."""
     require_on(tokens.device, {f"params/{k}": v for k, v in flatten(params).items()})
     b, s = tokens.shape
     max_len = max_len or s
     if max_len < s:
         raise ValueError(f"max_len {max_len} < prompt length {s}")
-    cache = init_cache(cfg, b, max_len, dtype=cfg.dtype, device=tokens.device)
+    cache = init_cache(cfg, b, max_len, dtype=cfg.cache_dtype, device=tokens.device)
     x = L.embed(params["embed"], tokens).to(cfg.dtype)
     for l in range(cfg.n_layers):
-        x, (k, v) = _block(layer_params(params, l), cfg, x, return_kv=True)
-        cache["k"][l, :, :s] = k
-        cache["v"][l, :, :s] = v
+        x, (k, v), _ = _block(layer_params(params, l), cfg, x, return_kv=True)
+        kc, vc = _layer_cache(cache, l)
+        kc[:, :s] = k
+        vc[:, :s] = v
     return _logits(params, cfg, x[:, -1:]), cache
 
 
-def decode_step(params: dict, cfg: LMConfig, token: torch.Tensor, cache: dict, index: int):
+def decode_step(params: dict, cfg: LMConfig, token: torch.Tensor, cache, index: int):
     """One decode step: ``token`` [B, 1] at position ``index`` (a Python int,
     the number of valid cache entries before this step). Returns (logits
-    [B, 1, V], cache).
+    [B, 1, V], cache); ``cache`` is in ``cfg.cache_layout``.
 
     Unlike the reference, which returns a new cache, this writes the step's
-    k/v into ``cache`` IN PLACE at ``index`` and returns the same dict. The
+    k/v into ``cache`` IN PLACE at ``index`` and returns the same object. The
     valid lengths handed to the decode kernel (``index + 1``) are built on
     the device from the Python int: no host read-back."""
-    require_on(token.device, {"cache/k": cache["k"], "cache/v": cache["v"]})
+    if isinstance(cache, dict) != (cfg.cache_layout == "stacked"):
+        raise ValueError(f"cache_layout {cfg.cache_layout!r} does not match a cache of "
+                         f"type {type(cache).__name__}")
+    k0, v0 = _layer_cache(cache, 0)
+    require_on(token.device, {"cache/k": k0, "cache/v": v0})
     index = int(index)
-    if not 0 <= index < cache["k"].shape[2]:
-        raise ValueError(f"index {index} outside the cache capacity {cache['k'].shape[2]}")
+    if not 0 <= index < k0.shape[1]:
+        raise ValueError(f"index {index} outside the cache capacity {k0.shape[1]}")
     x = L.embed(params["embed"], token).to(cfg.dtype)
     kv_len = torch.full((token.shape[0],), index + 1, dtype=torch.int32, device=token.device)
     for l in range(cfg.n_layers):
-        x, _ = _block(layer_params(params, l), cfg, x, kv_cache=(cache["k"][l], cache["v"][l]),
-                      cache_index=index, kv_len=kv_len)
+        x, _, _ = _block(layer_params(params, l), cfg, x, kv_cache=_layer_cache(cache, l),
+                         cache_index=index, kv_len=kv_len)
     return _logits(params, cfg, x), cache
-

@@ -70,38 +70,58 @@ def unflatten(flat: Mapping[str, Any]) -> dict:
     return tree
 
 
-def _init_leaf(spec: ParamSpec, generator: torch.Generator) -> torch.Tensor:
-    if spec.init == "zeros":
-        return torch.zeros(spec.shape, dtype=spec.dtype)
-    if spec.init == "ones":
-        return torch.ones(spec.shape, dtype=spec.dtype)
+def _std(spec: ParamSpec) -> float:
+    """The reference's std of a random leaf. ``fan_in`` is the product of
+    every axis but the last, of the whole (stacked) shape."""
     if spec.init == "normal":
-        std = spec.scale if spec.scale is not None else 0.02
-    elif spec.init == "fan_in":
+        return spec.scale if spec.scale is not None else 0.02
+    if spec.init == "fan_in":
         fan_in = int(np.prod(spec.shape[:-1])) if len(spec.shape) > 1 else spec.shape[0]
         scale = spec.scale if spec.scale is not None else 1.0
-        std = scale / math.sqrt(max(fan_in, 1))
-    elif spec.init == "embed":
-        std = spec.scale if spec.scale is not None else 1.0
-    else:
-        raise ValueError(f"unknown init {spec.init}")
-    z = torch.randn(spec.shape, generator=generator, dtype=torch.float32,
-                    device=generator.device)
-    return (std * z).to(spec.dtype)
+        return scale / math.sqrt(max(fan_in, 1))
+    if spec.init == "embed":
+        return spec.scale if spec.scale is not None else 1.0
+    raise ValueError(f"unknown init {spec.init}")
+
+
+def _init_leaf(spec: ParamSpec, generator: torch.Generator, device: torch.device,
+               dtype: torch.dtype) -> torch.Tensor:
+    """One leaf in ``dtype`` on ``device``. A leaf stacked over layers is
+    drawn a layer at a time (f32 on the generator's device, then cast into
+    the leaf), so no f32 copy of the whole leaf exists: one qwen3 expert
+    leaf is 38.7 GB in f32."""
+    if spec.init == "zeros":
+        return torch.zeros(spec.shape, dtype=dtype, device=device)
+    if spec.init == "ones":
+        return torch.ones(spec.shape, dtype=dtype, device=device)
+    std = _std(spec)
+
+    def draw(shape):
+        z = torch.randn(shape, generator=generator, dtype=torch.float32,
+                        device=generator.device)
+        return std * z
+
+    if not spec.axes or spec.axes[0] != "layers":
+        return draw(spec.shape).to(device=device, dtype=dtype)
+    out = torch.empty(spec.shape, dtype=dtype, device=device)
+    for l in range(spec.shape[0]):
+        out[l] = draw(spec.shape[1:])
+    return out
 
 
 def init_params(specs, generator: torch.Generator, device=None, dtype=None) -> dict:
     """Materialize a spec tree on ``device`` (``cuda`` unless the caller
     passes ``device="cpu"``; raises if no card is there). Random leaves are
-    drawn on the generator's device (a CUDA generator keeps a 300M-parameter
-    init off the host) in spec-tree order. ``dtype`` overrides float leaves."""
+    drawn on the generator's device (a CUDA generator keeps a 30B-parameter
+    init off the host) in spec-tree order, stacked leaves a layer at a time.
+    ``dtype`` overrides float leaves."""
     device = resolve_device(device)
 
     def leaf(spec: ParamSpec) -> torch.Tensor:
-        t = _init_leaf(spec, generator).to(device)
-        if dtype is not None and t.is_floating_point():
-            t = t.to(dtype)
-        return t
+        out_dtype = spec.dtype
+        if dtype is not None and spec.dtype.is_floating_point:
+            out_dtype = dtype
+        return _init_leaf(spec, generator, device, out_dtype)
 
     return tree_map(leaf, specs)
 

@@ -1,15 +1,16 @@
 """Vision Transformer, PyTorch port of ``repro.models.vit`` (the Janus path).
 
-``forward_janus`` runs unrolled blocks with a static per-layer ToMe merge
-schedule, and ``run_blocks`` / ``run_blocks_padded`` run any layer range
+``forward`` is the vanilla model (every block, no merging): the baseline
+Janus is measured against. ``forward_janus`` runs unrolled blocks with a
+static per-layer ToMe merge schedule, and ``run_blocks`` /
+``run_blocks_padded`` run any layer range
 ``[start, end)`` so the engine can run the device partition and the cloud
 partition separately. Parameters are the reference's tree (``specs``), with
 ``blocks/*`` stacked over layers; ``layer_params`` slices one layer (views,
 no copies).
 
-Not ported yet: the scan-based ``forward`` (off the Janus path) and the
-sharding ``constrain`` annotations of ``run_blocks``, which are no-ops on
-one device (they come with the mesh slice).
+Not ported yet: the sharding ``constrain`` annotations of ``run_blocks``,
+which are no-ops on one device (they come with the mesh slice).
 """
 from __future__ import annotations
 
@@ -107,6 +108,16 @@ def _block(bp: dict, cfg: ViTConfig, x: torch.Tensor, sizes: torch.Tensor | None
         x, sizes = tome.tome_merge(x, metric, sizes, merge_r)
     x = x + L.mlp(bp["mlp"], L.layernorm(bp["ln2"], x))
     return x, sizes
+
+
+def forward(params: dict, cfg: ViTConfig, images: torch.Tensor) -> torch.Tensor:
+    """Vanilla forward over every block, no merging (the reference scans
+    them): images [B, H, W, C] -> logits [B, n_classes]."""
+    x = embed_tokens(params, cfg, images)
+    for l in range(cfg.n_layers):
+        x, _ = _block(layer_params(params, l), cfg, x)
+    x = L.layernorm(params["norm"], x)
+    return L.linear(params["head"], x[:, 0])
 
 
 def run_blocks(params: dict, cfg: ViTConfig, x: torch.Tensor, sizes: torch.Tensor,

@@ -631,7 +631,7 @@ class FleetRuntime:
         if mesh_rules is not None:
             raise NotImplementedError(
                 "mesh_rules: mesh-sharded execution is not ported yet "
-                "(ROADMAP.md queue 1 item 10, sharding)")
+                "(ROADMAP.md queue 1 item 3, sharding)")
         self.streams = streams
         self.cloud = cloud or default_cloud_config(len(streams))
         if isinstance(autoscaler, AutoscaleConfig):

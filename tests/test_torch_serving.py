@@ -305,10 +305,10 @@ def test_workload_and_fault_spec_json_match_reference(tmp_path):
 def test_runtime_rejects_mesh_rules():
     _, cfg = _cfgs()
     spec = workload.WorkloadSpec.from_dict(SCENARIOS["closed-loop"])
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
+    with pytest.raises(NotImplementedError, match="queue 1 item 3, sharding"):
         workload.build_runtime(spec, _port_profile(), cfg, mesh_rules=object(),
                                device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
+    with pytest.raises(NotImplementedError, match="queue 1 item 3, sharding"):
         fleet.FleetRuntime(_port_profile(), cfg, [], mesh_rules=object(), device="cpu")
 
 
@@ -342,9 +342,9 @@ def test_cli_fleet_report_matches_reference(argv, capsys, monkeypatch):
 def test_cli_fleet_only_flags_and_mesh_are_refused():
     with pytest.raises(SystemExit):
         serve.main(["--arrivals", "poisson", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
+    with pytest.raises(NotImplementedError, match="queue 1 item 3, sharding"):
         serve.main(["--streams", "2", "--mesh", "dp", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
+    with pytest.raises(NotImplementedError, match="queue 1 item 3, sharding"):
         serve.main(["--streams", "2", "--mesh-model", "2", "--device", "cpu"])
 
 

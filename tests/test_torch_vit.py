@@ -306,6 +306,22 @@ def test_fused_qkv_forward_matches_reference():
         np.asarray(_jit_forward(jcfg, sched)(jp, jnp.asarray(img))), atol=1e-5)
 
 
+@pytest.mark.parametrize("fused_qkv", [False, True])
+def test_vanilla_forward_matches_reference(fused_qkv):
+    """``vit.forward``: every block, no merging (the baseline Janus is
+    measured against), on a batch of 2."""
+    jcfg, cfg = _cfgs(fused_qkv=fused_qkv)
+    jp, tp = _params(jcfg, seed=3)
+    img = _images(cfg, seed=3, batch=2)
+    ref = jax.jit(jvit.forward, static_argnums=1)(jp, jcfg, jnp.asarray(img))
+    out = vit.forward(tp, cfg, torch.from_numpy(img))
+    assert out.shape == (2, cfg.n_classes)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-5)
+    # an all-zero schedule runs the same blocks
+    zero = (0,) * cfg.n_layers
+    assert torch.equal(out, vit.forward_janus(tp, cfg, torch.from_numpy(img), zero))
+
+
 def _plan(tp, cfg, alpha, seed=0):
     sched = tuple(pruning.make_schedule("exponential", alpha, cfg.n_layers, cfg.num_tokens))
     x, sizes = engine.device_forward(tp, cfg, torch.from_numpy(_images(cfg, seed)),
