@@ -20,8 +20,18 @@ each failing the run on any failed check:
             and bf16 at D 16 and 32); both are timed at ViT B=1, ViT B=8 and
             the LM prefill shape, the CUDA-core one also in bf16 beside the
             tensor-core one; the tensor-core one also at the two MoE prefills
-            (qwen3 [8,32,1024,128], granite [8,24,1024,64], causal).
-            tome_scores at B=1 and B=8. decode_attention has
+            (qwen3 [8,32,1024,128], granite [8,24,1024,64], causal) and at
+            the diffusion paths' calls (dit-s2 [4,6,4096,64] with and without
+            the log-size bias, and at the Janus forward's second and last
+            lengths, 3141 and 2044, with it; flux-dev [16,24,1536,128] and
+            [4,24,4608,128]); both at the vision paths' vit-b16 and vit-l16
+            calls ([128,12,197,64], [128,16,197,64]). bf16 flash is held to
+            FLASH_BF16 and to a share of max|plain|, and at each diffusion and
+            vision call three wrong kernels made from the plain version must
+            read above that share. tome_scores at B=1 and B=8 and at dit-s2's
+            first, second and last merge layers ([4,2048,64] against
+            [4,2048,64], [4,1571,64] against [4,1570,64], [4,1022,64]
+            against [4,1022,64]). decode_attention has
             two kernels too, chosen by dtype: the tensor-core one (bf16) and
             the CUDA-core one (f32), both timed at the LM decode shape and two
             longer caches, the tensor-core one also at the MoE decode shapes
@@ -81,7 +91,27 @@ each failing the run on any failed check:
             2 x 256 + 8 teacher-forced tokens through the kernels against the
             plain versions, on the stacked f32 cache and on the per-layer int8
             cache: routes identical (or a near-tie, printed), then logits
-            within tolerance.
+            within tolerance;
+11. dit:    dit-s2 bf16 at gen_1024 (B=4, 1024 px, 4096 tokens; the registry's
+            config, adaLN-zero leaves redrawn so no block is gated to the
+            identity) sampled over all 50 DDIM steps by ``diffusion.dit_sample``,
+            dense and with the Janus ToMe schedule at alpha_max (4096 -> 2043
+            tokens): s/step, images/s, launches (flash_mma 12 a step,
+            tome_scores 12 a step in the Janus run); traced forwards;
+12. flux:   flux-dev bf16 at full size (57 blocks, 23.80 GB of weights drawn
+            on the card) sampled by ``diffusion.flux_sample``: gen_fast whole
+            (B=16, 512 px, 4 steps), gen_1024 (B=4, 1024 px) cut to 2 of its
+            50 steps; s/step, model TFLOP/s (the reference's flux_fwd_flops),
+            peak memory, launches (flash_mma 57 a step); then one traced
+            gen_1024 forward with flash_mma's share of kernel time;
+13. diffusion parity: f32, kernels against plain versions: dit-s2
+            ``forward_janus`` at gen_fast (merge indices identical at every
+            merge layer, then the output) and flux-dev cut to 2 double + 4
+            single blocks at full width, B=2 at 512 px;
+14. vision: the registry's vit-b16, vit-l16 (``vit.forward``), swin-b (224
+            and 384 px, window 12) and resnet-152 at their serving shapes in
+            bf16: images/s, and bf16 logits against f32 logits of the same
+            weights within a stated tolerance; ViT launches flash_mma a layer.
 
 The line before the last is the kernels JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without a card, or outside a checkout, it
@@ -107,11 +137,36 @@ PEAK_BYTES = 3.35e12
 
 FLASH_F32 = dict(atol=2e-5, rtol=1e-4)
 FLASH_BF16 = dict(atol=2e-2, rtol=0.0)
+# bf16 flash, beside FLASH_BF16: max|kernel - plain| <= FLASH_BF16_REL * max|plain|.
+# At S in the thousands an output is ~sqrt(e/S) ~ 0.025, so 2e-2 alone is
+# loose; each long-sequence case also shows that a plainly wrong kernel (one
+# key tile dropped, one query tile wrong, the bias ignored) reads above it.
+FLASH_BF16_REL = 3e-2
 TOME_MAX = dict(atol=2e-5, rtol=1e-3)   # tests/test_kernels.py:29-30
 DECODE_F32 = dict(atol=2e-5, rtol=1e-4)  # tests/test_kernels.py:113
 DECODE_BF16 = dict(atol=2e-2, rtol=0.0)  # f32 math on both sides, one rounding of the output
 BATCH_BF16 = dict(atol=0.1, rtol=0.05)  # bucketed vs exact logits, bf16, 6 layers
 PARITY_F32 = dict(atol=1e-3, rtol=1e-3)  # kernels vs plain, f32 whole paths (ViT 24, LM 30, MoE 4 layers)
+
+
+# the MoE prefills' flash calls, GQA repeated outside: (label, heads, head dim)
+MOE_PREFILL = (("qwen3 prefill causal", 32, 128), ("granite prefill causal", 24, 64))
+# the diffusion paths' flash calls, non-causal: (label, B, heads, S, head dim,
+# log-size bias). dit-s2's Janus forward at gen_1024 attends 4096, 3141, ...,
+# 2044 tokens (DIT_ALPHA_SCHEDULE), its dense forward 4096.
+DIFFUSION_FLASH = (("dit gen_1024 janus", 4, 6, 4096, 64, True),
+                   ("dit gen_1024 janus layer 1", 4, 6, 3141, 64, True),
+                   ("dit gen_1024 janus layer 11", 4, 6, 2044, 64, True),
+                   ("dit gen_1024 dense", 4, 6, 4096, 64, False),
+                   ("flux gen_fast", 16, 24, 1536, 128, False),
+                   ("flux gen_1024", 4, 24, 4608, 128, False))
+# [vision]'s vit.forward calls, 128 images of 197 tokens, no bias: bf16 on the
+# tensor-core kernel, f32 (its reference logits) on the CUDA-core one
+VISION_FLASH = (("vit-b16 serve_b128", 128, 12, 197, 64, False),
+                ("vit-l16 serve_b128", 128, 16, 197, 64, False))
+# tome_scores calls: ViT B=1 and B=8 (289 x 288), dit-s2's merges at gen_1024:
+# the first (4096 tokens), the second (3141) and the last (2044)
+TOME_SHAPES = ((1, 289, 288), (8, 289, 288), (4, 2048, 2048), (4, 1571, 1570), (4, 1022, 1022))
 
 
 def fail(msg: str) -> None:
@@ -180,6 +235,14 @@ def main() -> int:
     paths["moe_granite"] = granite_phase(torch)
     torch.cuda.empty_cache()
     paths["moe_f32_parity"], paths["moe_f32_parity_int8"] = moe_parity_phase(torch)
+    torch.cuda.empty_cache()
+    paths["dit"], paths["dit_janus"] = dit_phase(torch)
+    torch.cuda.empty_cache()
+    paths["flux_gen_fast"], paths["flux_gen_1024"] = flux_phase(torch)
+    torch.cuda.empty_cache()
+    paths["dit_f32_parity"], paths["flux_f32_parity"] = diffusion_parity_phase(torch)
+    torch.cuda.empty_cache()
+    paths.update(vision_phase(torch))
 
     for row in rows:
         name = row["name"]
@@ -366,8 +429,30 @@ def kernel_phase(torch) -> list[dict]:
             sizes[:, sk - pads:] = 0.0  # bucket pads: log(0) = -inf
         return q, k, v, torch.log(sizes)
 
+    def wrong_readings(label, q, k, v, kw, exp, scale):
+        """What three plainly wrong kernels would read at this call, each made
+        from the plain version, as a share of max|plain|: the bf16 limit must
+        reject every one of them."""
+        drop = torch.zeros(k.shape[0], k.shape[2], device=dev)
+        drop[:, :64] = -torch.inf
+        bias = kw["bias"]
+        wrong = {"key tile 0 dropped": ref.flash_attention_ref(
+            q, k, v, bias=drop if bias is None else bias + drop, causal=kw["causal"])}
+        swapped = exp.clone()
+        swapped[:, 0, :64] = exp[:, 1, :64]
+        wrong["query tile 0 of head 0 = head 1's"] = swapped
+        if bias is not None:
+            wrong["bias ignored"] = ref.flash_attention_ref(q, k, v, causal=kw["causal"])
+        rel = {name: (w.float() - exp.float()).abs().max().item() / scale
+               for name, w in wrong.items()}
+        print(f"[kernels] flash_attention_mma {label}: a wrong kernel would read "
+              + ", ".join(f"{name} {r:.3e}" for name, r in rel.items())
+              + f" of max|plain| (limit {FLASH_BF16_REL})")
+        check(min(rel.values()) > FLASH_BF16_REL,
+              f"the bf16 flash limit does not reject a wrong kernel at {label}")
+
     def flash_case(label, b, dtype, sq=s, sk=s, pads=0, kv=False, causal=False, h=h, d=d,
-                   with_bias=True):
+                   with_bias=True, wrong=False):
         q, k, v, bias = flash_inputs(b, dtype, sq, sk, pads, h, d)
         kv_len = None
         if kv:  # random lengths, the first member fully masked
@@ -384,13 +469,21 @@ def kernel_phase(torch) -> list[dict]:
               f"flash_attention {label} ran on another kernel than {kernel}")
         tol = FLASH_F32 if dtype == torch.float32 else FLASH_BF16
         err = (out.float() - exp.float()).abs().max().item()
+        scale = exp.float().abs().max().item()
         flash_err[kernel] = max(flash_err[kernel], err)
         ok = bool(torch.isfinite(out).all()) and torch.allclose(out.float(), exp.float(), **tol)
+        limit = ""
+        if dtype == torch.bfloat16:
+            ok = ok and err <= FLASH_BF16_REL * scale
+            limit = f" and {FLASH_BF16_REL} x max|plain|"
         if kv:
             ok = ok and bool(torch.all(out[0] == 0))
         print(f"[kernels] {kernel} {label}: B={b} H={h} Sq={sq} Sk={sk} D={d} "
-              f"{str(dtype)[6:]} max_abs_err={err:.3e} tol={tol} {'ok' if ok else 'FAIL'}")
+              f"{str(dtype)[6:]} max_abs_err={err:.3e} ({err / scale:.3e} of max|plain| "
+              f"{scale:.3e}) tol={tol}{limit} {'ok' if ok else 'FAIL'}")
         check(ok, f"flash_attention {label} disagrees with its plain version")
+        if wrong:
+            wrong_readings(label, q, k, v, kw, exp, scale)
 
     for b in (1, 8):
         for dtype in (torch.bfloat16, torch.float32):
@@ -406,6 +499,11 @@ def kernel_phase(torch) -> list[dict]:
         flash_case("LM prefill causal", 8, dtype, sq=1024, sk=1024, causal=True, h=24, d=128,
                    with_bias=False)
     flash_case("small head dim", 2, torch.bfloat16, h=4, d=32)
+    for label, b, hh, ss, dd, with_bias in DIFFUSION_FLASH + VISION_FLASH:
+        flash_case(label, b, torch.bfloat16, sq=ss, sk=ss, h=hh, d=dd, with_bias=with_bias,
+                   wrong=True)
+    for label, b, hh, ss, dd, with_bias in VISION_FLASH:
+        flash_case(label, b, torch.float32, sq=ss, sk=ss, h=hh, d=dd, with_bias=with_bias)
     for label, hh, dd in MOE_PREFILL:
         flash_case(label, 8, torch.bfloat16, sq=1024, sk=1024, causal=True, h=hh, d=dd,
                    with_bias=False)
@@ -414,15 +512,19 @@ def kernel_phase(torch) -> list[dict]:
     # frames, with the bias; the LM prefill, causal
     def flash_timings(kernel, dtype) -> list[dict]:
         out = []
-        shapes = [("ViT B=1", 1, h, s, d, False), ("ViT B=8", 8, h, s, d, False),
-                  ("LM prefill", 8, 24, 1024, 128, True)]
-        if kernel == flash_mod.MMA:  # the MoE prefills: bf16 only
-            shapes += [(label, 8, hh, 1024, dd, True) for label, hh, dd in MOE_PREFILL]
-        for label, b, hh, ss, dd, causal in shapes:
+        shapes = [("ViT B=1", 1, h, s, d, False, True), ("ViT B=8", 8, h, s, d, False, True),
+                  ("LM prefill", 8, 24, 1024, 128, True, False)]
+        if kernel == flash_mod.MMA:  # the MoE prefills and the diffusion paths: bf16 only
+            shapes += [(label, 8, hh, 1024, dd, True, False) for label, hh, dd in MOE_PREFILL]
+            shapes += [(label, b, hh, ss, dd, False, with_bias)
+                       for label, b, hh, ss, dd, with_bias in DIFFUSION_FLASH]
+        shapes += [(label, b, hh, ss, dd, False, with_bias)
+                   for label, b, hh, ss, dd, with_bias in VISION_FLASH]
+        for label, b, hh, ss, dd, causal, with_bias in shapes:
             q, k, v, bias = flash_inputs(b, dtype, ss, ss, 0, hh, dd)
-            bias = None if causal else bias
+            bias = bias if with_bias else None
             check(flash_mod.kernel_for(dtype, dd) == kernel, f"{kernel} timing route")
-            iters = 10 if causal else 30
+            iters = 10 if causal or ss > 1024 else 30
             ms = time_ms(torch, lambda: flash_mod.flash_attention(q, k, v, bias=bias,
                                                                   causal=causal), iters)
             plain = time_ms(torch, lambda: ref.flash_attention_ref(q, k, v, bias=bias,
@@ -436,7 +538,8 @@ def kernel_phase(torch) -> list[dict]:
             b_ms, b_by = bound(4.0 * b * hh * dd * pairs, nbytes,
                                PEAK_BF16 if dtype == torch.bfloat16 else PEAK_F32)
             row = dict(shape=f"{label}: q,k,v [{b},{hh},{ss},{dd}] {str(dtype)[6:]}"
-                             + (", causal" if causal else f", bias [{b},{ss}]"),
+                             + (", causal" if causal else "")
+                             + (f", bias [{b},{ss}]" if with_bias else ""),
                        ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms, bound_by=b_by)
             extra = ""
             if kernel == flash_mod.MMA:  # the CUDA-core kernel on the same bf16 call
@@ -461,7 +564,7 @@ def kernel_phase(torch) -> list[dict]:
             serves="bf16 at D 64, 128" if kernel == flash_mod.MMA
             else "f32 at D 16-128, bf16 at D 16, 32",
             max_abs_err=flash_err[kernel], max_err=flash_err[kernel],
-            tol={"f32": FLASH_F32, "bf16": FLASH_BF16},
+            tol={"f32": FLASH_F32, "bf16": FLASH_BF16, "bf16_of_max_plain": FLASH_BF16_REL},
             ms=vit8["ms"], kernel_ms=vit8["ms"], plain_ms=vit8["plain_ms"],
             library_ms=vit8["library_ms"],
             library="torch.nn.functional.scaled_dot_product_attention (attn_mask=bias, or "
@@ -471,40 +574,40 @@ def kernel_phase(torch) -> list[dict]:
 
     tome_err = 0.0
 
-    def tome_case(b, nb_len):
-        a = F.normalize(torch.randn((b, 289, d), generator=gen, device=dev), dim=-1)
-        bb = F.normalize(torch.randn((b, 288, d), generator=gen, device=dev), dim=-1)
-        nbl = torch.randint(100, 289, (b,), generator=gen, device=dev,
+    def tome_case(b, nb_len, na=289, nb=288):
+        a = F.normalize(torch.randn((b, na, d), generator=gen, device=dev), dim=-1)
+        bb = F.normalize(torch.randn((b, nb, d), generator=gen, device=dev), dim=-1)
+        nbl = torch.randint(100, nb + 1, (b,), generator=gen, device=dev,
                             dtype=torch.int32) if nb_len else None
         m, i = tome_mod.tome_scores(a, bb, nbl)
         mr, ir = ref.tome_scores_ref(a, bb, nbl)
         torch.cuda.synchronize()
         scores = torch.einsum("bnd,bmd->bnm", a, bb)
         if nbl is not None:
-            col = torch.arange(288, device=dev)
+            col = torch.arange(nb, device=dev)
             scores = scores.masked_fill(col[None, None, :] >= nbl[:, None, None], -torch.inf)
         at_idx = torch.gather(scores, 2, i.long()[..., None])[..., 0]
         err = (m - mr).abs().max().item()
         exact = int((i == ir).sum())
         ok = (torch.allclose(m, mr, **TOME_MAX)
               and torch.allclose(at_idx, scores.amax(-1), **TOME_MAX))
-        print(f"[kernels] tome_scores B={b} Na=289 Nb=288 D={d} nb_len={nb_len}: "
+        print(f"[kernels] tome_scores B={b} Na={na} Nb={nb} D={d} nb_len={nb_len}: "
               f"max_abs_err={err:.3e} argmax equal {exact}/{i.numel()} "
               f"(others tie at the chosen index) {'ok' if ok else 'FAIL'}")
         check(ok, "tome_scores disagrees with its plain version")
         return max(err, (at_idx - scores.amax(-1)).abs().max().item()), a, bb
 
-    for b in (1, 8):
+    for b, na, nb in TOME_SHAPES:
         for nb_len in (False, True):
-            err, a, bb = tome_case(b, nb_len)
+            err, a, bb = tome_case(b, nb_len, na, nb)
             tome_err = max(tome_err, err)
 
     one = torch.zeros(1, device=dev)
     floor = time_ms(torch, lambda: one.add_(1), queued=True)
     print(f"[kernels] launch floor: a 1-element add, queued: {floor:.4f} ms")
     tome_timings = []
-    for b in (1, 8):
-        _, a, bb = tome_case(b, False)
+    for b, na, nb in TOME_SHAPES:
+        _, a, bb = tome_case(b, False, na, nb)
 
         def kernel():
             return tome_mod.tome_scores(a, bb)
@@ -518,15 +621,15 @@ def kernel_phase(torch) -> list[dict]:
         dev_us, lib_us = device_us(torch, kernel), device_us(torch, library)
         b1 = bb[:, :1].contiguous()  # one column: what a call costs beside its FMAs
         fixed_us = device_us(torch, lambda: tome_mod.tome_scores(a, b1))
-        flops = 2.0 * b * 289 * 288 * d
-        nbytes = (a.numel() + bb.numel()) * 4 + b * 289 * 8
+        flops = 2.0 * b * na * nb * d
+        nbytes = (a.numel() + bb.numel()) * 4 + b * na * 8
         b_ms, b_by = bound(flops, nbytes, PEAK_F32)
-        print(f"[kernels] tome_scores B={b} Na=289 Nb=288 D={d} f32 timing, queued: kernel "
+        print(f"[kernels] tome_scores B={b} Na={na} Nb={nb} D={d} f32 timing, queued: kernel "
               f"{ms:.4f} ms, plain {plain:.4f} ms, bmm+max {lib:.4f} ms ({ms / lib:.2f}x), "
               f"bound {b_ms:.6f} ms ({b_by}); back to back from the host: kernel {eager:.4f} "
               f"ms, bmm+max {lib_eager:.4f} ms; on the card per launch (profiler): "
               f"{fmt_us(dev_us)}; with Nb=1 {fmt_us(fixed_us)}; bmm+max {fmt_us(lib_us)}")
-        tome_timings.append(dict(shape=f"a [{b},289,{d}], b [{b},288,{d}] f32", ms=ms,
+        tome_timings.append(dict(shape=f"a [{b},{na},{d}], b [{b},{nb},{d}] f32", ms=ms,
                                  plain_ms=plain, library_ms=lib, bound_ms=b_ms, bound_by=b_by,
                                  host_ms=eager, library_host_ms=lib_eager, device_us=dev_us,
                                  nb1_device_us=fixed_us, library_device_us=lib_us))
@@ -895,10 +998,11 @@ PORT_KERNEL = re.compile(r"\b(flash_mma_fwd|flash_fwd|tome_scores|decode_mma_par
 MOE_RANGE = "moe.apply"
 
 
-def profile_once(torch, label: str, fn, moe_split: bool = False) -> None:
+def profile_once(torch, label: str, fn, moe_split: bool = False):
     """torch.profiler over one call of ``fn`` after one warm call: prints the
     wall time, the sum of kernel time on the card, the idle share, the top 8
-    kernels and every other kernel of the port as ``[trace]`` lines. With
+    kernels and every other kernel of the port as ``[trace]`` lines, and
+    returns (the profile, kernel ms, wall ms). With
     ``moe_split`` each ``moe.apply`` call runs inside a profiler range, and
     a line splits the kernel time under those ranges into the expert GEMMs
     (the ``bmm`` calls of ``apply`` itself) and the rest of the MoE layer
@@ -928,6 +1032,7 @@ def profile_once(torch, label: str, fn, moe_split: bool = False) -> None:
     busy_ms = report_profile(label, prof, wall_ms)
     if moe_split:
         report_moe_split(label, prof, busy_ms)
+    return prof, busy_ms, wall_ms
 
 
 def report_moe_split(label: str, prof, busy_ms: float) -> None:
@@ -1239,35 +1344,42 @@ def fleet_phase(torch, cfg, params, images) -> tuple[dict[str, int], dict[str, i
 
 # ---------------------------------------------------------------------- parity
 
+def _recording_matches(fn):
+    """``fn()`` with ``tome.bipartite_soft_matching`` wrapped to record each
+    merge layer's indices and metric: (output, record)."""
+    from repro_torch.core import tome
+
+    matching = tome.bipartite_soft_matching
+    record = []
+
+    def recording(metric, r, **kw):
+        idx = matching(metric, r, **kw)
+        record.append((idx, metric))
+        return idx
+
+    tome.bipartite_soft_matching = recording
+    try:
+        return fn(), record
+    finally:
+        tome.bipartite_soft_matching = matching
+
+
 def parity_phase(torch) -> tuple[dict[str, int], dict[str, int]]:
     """ViT-L@384 in f32 on the card, through the kernels against the plain
     versions: ``vit.forward_janus`` at alpha 0.27 (logits, and the merge
     indices of every merge layer), then the vanilla ``vit.forward``. Returns
     the launch counts of the two kernel runs."""
-    from repro_torch.core import pruning, tome
+    from repro_torch.core import pruning
     from repro_torch.kernels import ops
     from repro_torch.models import vit
 
     cfg, params, images = _vit_l(torch, torch.float32)
     alpha = 0.27  # the planner grid's largest α: merges at all 24 layers
     sched = tuple(pruning.make_schedule("exponential", alpha, cfg.n_layers, cfg.num_tokens))
-    matching = tome.bipartite_soft_matching
 
     def forward_recording():
-        """vit.forward_janus itself, with tome.bipartite_soft_matching wrapped
-        to record each merge layer's indices and metric."""
-        record = []
-
-        def recording(metric, r, **kw):
-            idx = matching(metric, r, **kw)
-            record.append((idx, metric))
-            return idx
-
-        tome.bipartite_soft_matching = recording
-        try:
-            logits = vit.forward_janus(params, cfg, images, sched)
-        finally:
-            tome.bipartite_soft_matching = matching
+        logits, record = _recording_matches(
+            lambda: vit.forward_janus(params, cfg, images, sched))
         check(len(record) == sum(1 for r in sched if r > 0), "merge layers recorded")
         return logits, record
 
@@ -1327,8 +1439,6 @@ def parity_phase(torch) -> tuple[dict[str, int], dict[str, int]]:
 # -------------------------------------------------------------------------- lm
 
 LM_BATCH, LM_PROMPT, LM_STEPS, LM_CAPACITY = 8, 1024, 64, 2048
-# the MoE prefills' flash calls, GQA repeated outside: (label, heads, head dim)
-MOE_PREFILL = (("qwen3 prefill causal", 32, 128), ("granite prefill causal", 24, 64))
 
 
 def _lm(torch, module, dtype, **replace):
@@ -1364,7 +1474,7 @@ def serve_phase(torch, tag: str, name: str, cfg, params, steps: int) -> tuple[di
     the cache)."""
     from repro_torch.models import lm, param
 
-    weights_gb = sum(t.numel() * t.element_size() for t in param.flatten(params).values()) / 1e9
+    weights_gb = _weights_gb(param, params)
     tokens = torch.randint(0, cfg.vocab, (LM_BATCH, LM_PROMPT), dtype=torch.int32, device="cuda",
                            generator=torch.Generator(device="cuda").manual_seed(1))
     print(f"[{tag}] {name} {str(cfg.dtype)[6:]}: {_describe(cfg)}; weights {weights_gb:.3f} GB "
@@ -1698,6 +1808,402 @@ def judged_entries(differ_k, differ_v, prompt: int):
         judged[:int(flip_at[:, first].nonzero()[:, 0].min()) + 1, first] = True
     return judged, first
 
+
+# ------------------------------------------------------------------- diffusion
+
+DIT_ALPHA_SCHEDULE = [955, 512, 274, 147, 78, 42, 22, 12, 6, 3, 1, 1]  # dit-s2 at 4096 tokens
+FLUX_PARAMS = 11_901_414_464
+FLUX_STEPS = {"gen_fast": 4, "gen_1024": 2}  # gen_1024 cut to 2 of its 50 steps
+PEAK_BF16_NAME = "989 TFLOP/s (H100 SXM bf16 dense)"
+
+
+def _redraw_zeros(torch, specs, params, seed: int, std: float = 0.02) -> None:
+    """adaLN-zero initialises the modulations and final projections to zero,
+    which gates every block to the identity and makes the output exactly 0:
+    no kernel error could show. Redraw every ``init="zeros"`` leaf from
+    N(0, std^2) on the card (a stacked leaf a layer at a time)."""
+    from repro_torch.models import param
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    flat = param.flatten(params)
+    for key, spec in param.flatten(specs).items():
+        if spec.init != "zeros":
+            continue
+        t = flat[key]
+        for part in (t if spec.axes and spec.axes[0] == "layers" else [t]):
+            part.copy_(std * torch.randn(part.shape, generator=gen, device="cuda"))
+
+
+def _n_params(param, params) -> int:
+    return sum(t.numel() for t in param.flatten(params).values())
+
+
+def _weights_gb(param, params) -> float:
+    return sum(t.numel() * t.element_size() for t in param.flatten(params).values()) / 1e9
+
+
+def _dit(torch, dtype, shape_name: str):
+    """dit-s2 at a registry shape: (cfg, params drawn on the card with the
+    zero leaves redrawn, shape)."""
+    from repro_torch import configs
+    from repro_torch.models import dit, param
+
+    arch = configs.get_arch("dit-s2")
+    shape = arch.shape(shape_name)
+    cfg = dataclasses.replace(configs.config_for_shape(arch, shape), dtype=dtype)
+    specs = dit.specs(cfg)
+    params = param.init_params(specs, torch.Generator(device="cuda").manual_seed(0), "cuda",
+                               dtype=dtype)
+    _redraw_zeros(torch, specs, params, 1)
+    return cfg, params, shape
+
+
+def _dit_schedule(cfg) -> list[int]:
+    from repro_torch.core import pruning
+    alpha = pruning.alpha_max(cfg.n_layers, cfg.num_tokens)
+    return pruning.make_schedule("exponential", alpha, cfg.n_layers, cfg.num_tokens)
+
+
+def _nz(counts: dict[str, int]) -> dict[str, int]:
+    """The nonzero launch counts, for printing."""
+    return {name: n for name, n in counts.items() if n}
+
+
+def _expect(**counts) -> dict[str, int]:
+    exp = {"flash_attention_mma": 0, "flash_attention": 0, "tome_scores": 0,
+           "decode_attention_mma": 0, "decode_attention": 0}
+    exp.update(counts)
+    return exp
+
+
+def dit_phase(torch) -> tuple[dict[str, int], dict[str, int]]:
+    """dit-s2 bf16 at gen_1024 (B=4, 1024 px, 4096 tokens) sampled over all
+    50 DDIM steps through ``diffusion.dit_sample``, dense and with the Janus
+    schedule at alpha_max (4096 -> 2043 tokens); the launch counters are
+    zeroed just before each run and read just after (flash_mma 12 a step,
+    tome_scores one a merge layer and step). Then torch.profiler over one
+    dense and one Janus forward."""
+    from repro_torch.models import dit, param
+    from repro_torch.training import diffusion
+
+    cfg, params, shape = _dit(torch, torch.bfloat16, "gen_1024")
+    b, steps = shape.batch, shape.steps
+    sched = _dit_schedule(cfg)
+    check(sched == DIT_ALPHA_SCHEDULE, f"dit-s2 schedule {sched}")
+    merges = sum(1 for r in sched if r > 0)
+    y = torch.randint(0, cfg.n_classes, (b,), generator=torch.Generator(device="cuda")
+                      .manual_seed(3), device="cuda")
+    print(f"[dit] dit-s2 {str(cfg.dtype)[6:]} at {shape.name}: {cfg.img_res} px, latent "
+          f"{cfg.latent_res}x{cfg.latent_res}x{cfg.latent_channels}, {cfg.num_tokens} tokens, "
+          f"{cfg.n_layers} layers d={cfg.d_model} {cfg.n_heads} heads of {cfg.head_dim}; "
+          f"{_n_params(param, params)} parameters ({_weights_gb(param, params):.3f} GB); "
+          f"Janus schedule {sched} ({cfg.num_tokens} -> {cfg.num_tokens - sum(sched)} tokens)")
+    for s in (None, sched):  # warm-up outside the counted runs
+        diffusion.dit_sample(params, cfg, torch.Generator(device="cuda").manual_seed(2), y, 1, s)
+    torch.cuda.synchronize()
+    counts, finals = {}, {}
+    for label, s in (("dense", None), ("janus", sched)):
+        zero_counts()
+        t0 = time.perf_counter()
+        x = diffusion.dit_sample(params, cfg, torch.Generator(device="cuda").manual_seed(2), y,
+                                 steps, s)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts[label] = read_counts()
+        exp = _expect(flash_attention_mma=cfg.n_layers * steps,
+                      tome_scores=merges * steps if s else 0)
+        finals[label] = x.float()
+        print(f"[dit] {label} B={b} x {steps} steps: {wall:.3f} s, {wall / steps * 1e3:.2f} "
+              f"ms/step, {b / wall:.3f} images/s; |x| max {x.float().abs().max().item():.4g}; "
+              f"launches {_nz(counts[label])} (implies {_nz(exp)})")
+        check(tuple(x.shape) == (b, cfg.latent_res, cfg.latent_res, cfg.latent_channels),
+              f"dit {label} output shape")
+        check(bool(torch.isfinite(x).all()), f"non-finite dit {label} samples")
+        check(counts[label] == exp, f"dit {label} launch counts")
+    gap = (finals["janus"] - finals["dense"]).abs().max() / finals["dense"].abs().max()
+    print(f"[dit] Janus vs dense samples: max|d| / max|dense| {gap.item():.4f}")
+    x0 = torch.randn((b, cfg.latent_res, cfg.latent_res, cfg.latent_channels), device="cuda",
+                     generator=torch.Generator(device="cuda").manual_seed(4)).to(cfg.dtype)
+    t = torch.full((b,), 500.0, device="cuda")
+    profile_once(torch, f"dit dense forward B={b} {cfg.num_tokens} tokens",
+                 lambda: dit.forward(params, cfg, x0, t, y))
+    profile_once(torch, f"dit janus forward B={b} {cfg.num_tokens} -> "
+                        f"{cfg.num_tokens - sum(sched)} tokens",
+                 lambda: dit.forward_janus(params, cfg, x0, t, y, sched))
+    return counts["dense"], counts["janus"]
+
+
+def flux_fwd_flops(cfg, batch: int) -> float:
+    """A copy of the reference's ``launch.steps.flux_fwd_flops``: stream-aware
+    (img-side double params see the image tokens, txt-side the text tokens,
+    single blocks both) plus the joint attention's quadratic term."""
+    d, ff = cfg.d_model, cfg.d_ff
+    ni, nt = cfg.n_img_tokens, cfg.txt_len
+    per_stream = 4 * d * d + 2 * d * ff + 6 * d * d  # qkvo + mlp + mod
+    p_single = d * (3 * d + ff) + (d + ff) * d + 3 * d * d
+    f = 2 * cfg.n_double * (per_stream * ni + per_stream * nt)
+    f += 2 * cfg.n_single * p_single * (ni + nt)
+    f += 2 * 2 * (cfg.n_double + cfg.n_single) * (ni + nt) ** 2 * d  # joint attn
+    return f * batch
+
+
+def _flux_inputs(torch, cfg, b: int, seed: int):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    txt = torch.randn((b, cfg.txt_len, cfg.t5_dim), generator=gen, device="cuda")
+    vec = torch.randn((b, cfg.clip_dim), generator=gen, device="cuda")
+    return txt.to(cfg.dtype), vec.to(cfg.dtype)
+
+
+def kernel_share(prof, pattern: str) -> tuple[float, int]:
+    """(ms, launches) on the card of the kernels whose name contains ``pattern``."""
+    from torch.autograd import DeviceType
+    ts = [ev.time_range.elapsed_us() / 1e3 for ev in prof.events()
+          if ev.device_type == DeviceType.CUDA and pattern in ev.name]
+    return sum(ts), len(ts)
+
+
+def flux_phase(torch) -> tuple[dict[str, int], dict[str, int]]:
+    """flux-dev bf16 at full size (19 double + 38 single blocks, d 3072, 24
+    heads of 128; 23.80 GB of weights drawn on the card, zero leaves
+    redrawn) sampled through ``diffusion.flux_sample``: gen_fast whole (B=16,
+    512 px, 1024 + 512 tokens, 4 steps), then gen_1024 (B=4, 1024 px, 4096 +
+    512 tokens) cut to 2 of its 50 steps; the counters are zeroed just before
+    each and read just after (flash_mma 57 a step). Then torch.profiler over
+    one gen_1024 forward: flash_mma's share of kernel time."""
+    from repro_torch import configs
+    from repro_torch.models import flux, param
+    from repro_torch.training import diffusion
+
+    arch = configs.get_arch("flux-dev")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    specs = flux.specs(arch.config)
+    params = param.init_params(specs, torch.Generator(device="cuda").manual_seed(0), "cuda",
+                               dtype=torch.bfloat16)
+    _redraw_zeros(torch, specs, params, 1)
+    torch.cuda.synchronize()
+    n = _n_params(param, params)
+    print(f"[flux] flux-dev bf16: {arch.config.n_double} double + {arch.config.n_single} single "
+          f"blocks, d={arch.config.d_model}, {arch.config.n_heads} heads of "
+          f"{arch.config.head_dim}; {n} parameters, {_weights_gb(param, params):.3f} GB; init on "
+          f"the card {time.perf_counter() - t0:.1f} s, max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+    check(n == FLUX_PARAMS, f"flux-dev parameter count {n}")
+    counts = {}
+    for i, (shape_name, steps) in enumerate(FLUX_STEPS.items()):
+        shape = arch.shape(shape_name)
+        cfg, b = configs.config_for_shape(arch, shape), shape.batch
+        txt, vec = _flux_inputs(torch, cfg, b, 5 + i)
+        # warm-up outside the counted run: one forward of one member
+        diffusion.flux_sample(params, cfg, torch.Generator(device="cuda").manual_seed(6),
+                              txt[:1], vec[:1], 1)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        t0 = time.perf_counter()
+        x = diffusion.flux_sample(params, cfg, torch.Generator(device="cuda").manual_seed(6),
+                                  txt, vec, steps)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts[shape_name] = read_counts()
+        exp = _expect(flash_attention_mma=(cfg.n_double + cfg.n_single) * steps)
+        tflops = flux_fwd_flops(cfg, b) * steps / wall / 1e12
+        cut = "" if steps == shape.steps else f" (cut from {shape.steps})"
+        print(f"[flux] {shape_name} B={b} {cfg.img_res} px, {cfg.n_img_tokens} + {cfg.txt_len} "
+              f"tokens, {steps} steps{cut}: {wall:.3f} s, {wall / steps * 1e3:.1f} ms/step, "
+              f"{b / wall:.3f} images/s; model {tflops:.1f} TFLOP/s "
+              f"({tflops * 1e12 / PEAK_BF16:.3f} of {PEAK_BF16_NAME}, flux_fwd_flops "
+              f"{flux_fwd_flops(cfg, b):.4g} a forward); max_memory_allocated "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB; |x| max "
+              f"{x.float().abs().max().item():.4g}; launches {_nz(counts[shape_name])} "
+              f"(implies {_nz(exp)})")
+        check(tuple(x.shape) == (b, cfg.latent_res, cfg.latent_res, cfg.latent_channels),
+              f"flux {shape_name} output shape")
+        check(bool(torch.isfinite(x).all()), f"non-finite flux {shape_name} samples")
+        check(counts[shape_name] == exp, f"flux {shape_name} launch counts")
+        del x, txt, vec
+
+    shape = arch.shape("gen_1024")
+    cfg, b = configs.config_for_shape(arch, shape), shape.batch
+    txt, vec = _flux_inputs(torch, cfg, b, 7)
+    lat = torch.randn((b, cfg.latent_res, cfg.latent_res, cfg.latent_channels), device="cuda",
+                      generator=torch.Generator(device="cuda").manual_seed(8)).to(cfg.dtype)
+    t = torch.full((b,), 0.5, device="cuda")
+    g = torch.full((b,), 3.5, device="cuda")
+    prof, busy_ms, wall_ms = profile_once(
+        torch, f"flux gen_1024 forward B={b} {cfg.n_img_tokens} + {cfg.txt_len} tokens",
+        lambda: flux.forward(params, cfg, lat, txt, vec, t, g))
+    flash_ms, flash_n = kernel_share(prof, "flash_mma_fwd")
+    if busy_ms:
+        print(f"[trace] flux gen_1024 forward: flash_mma {flash_ms:.3f} ms in {flash_n} launches, "
+              f"{flash_ms / busy_ms:.3f} of kernel time ({flash_ms / flash_n:.3f} ms a call); "
+              f"model {flux_fwd_flops(cfg, b) / wall_ms / 1e9:.1f} TFLOP/s over the traced wall")
+    return counts["gen_fast"], counts["gen_1024"]
+
+
+def diffusion_parity_phase(torch) -> tuple[dict[str, int], dict[str, int]]:
+    """f32 on the card, through the kernels against the plain versions:
+    dit-s2 ``forward_janus`` at gen_fast (B=16, 1024 tokens, schedule at
+    alpha_max; merge indices identical at every merge layer, then the
+    output), and flux-dev cut to 2 double + 4 single blocks at full width,
+    B=2 at 512 px (1024 + 512 tokens). Returns the kernel runs' counts."""
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.models import dit, flux, param
+
+    cfg, params, shape = _dit(torch, torch.float32, "gen_fast")
+    b = shape.batch
+    sched = _dit_schedule(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    lat = torch.randn((b, cfg.latent_res, cfg.latent_res, cfg.latent_channels), generator=gen,
+                      device="cuda")
+    t = torch.linspace(0.0, 999.0, b, device="cuda")
+    y = torch.randint(0, cfg.n_classes + 1, (b,), generator=gen, device="cuda")
+    t0 = time.perf_counter()
+    zero_counts()
+    out_k, rec_k = _recording_matches(lambda: dit.forward_janus(params, cfg, lat, t, y, sched))
+    dit_counts = read_counts()
+    with ops.plain_versions():
+        out_p, rec_p = _recording_matches(lambda: dit.forward_janus(params, cfg, lat, t, y,
+                                                                    sched))
+    torch.cuda.synchronize()
+    same = sum(all(torch.equal(a, c) for a, c in zip(ik, ip))
+               for (ik, _), (ip, _) in zip(rec_k, rec_p))
+    merges = sum(1 for r in sched if r > 0)
+    err = (out_k - out_p).abs().max().item()
+    ok = same == merges == len(rec_k) and torch.allclose(out_k, out_p, **PARITY_F32)
+    exp = _expect(flash_attention=cfg.n_layers, tome_scores=merges)
+    print(f"[diffusion parity] dit-s2 f32 forward_janus at {shape.name} B={b}, "
+          f"{cfg.num_tokens} tokens, schedule {sched}: merge indices identical at "
+          f"{same}/{merges} merge layers; kernels vs plain max|d| {err:.3e} (|out| max "
+          f"{out_p.abs().max().item():.3f}), tol={PARITY_F32}; launches of the kernel run "
+          f"{_nz(dit_counts)} (implies {_nz(exp)}); {time.perf_counter() - t0:.1f} s "
+          f"{'ok' if ok else 'FAIL'}")
+    check(ok, "f32 dit forward_janus parity failed")
+    check(dit_counts == exp, "f32 dit launch counts")
+    del params, out_k, out_p, rec_k, rec_p
+    torch.cuda.empty_cache()
+
+    arch = configs.get_arch("flux-dev")
+    cfg = dataclasses.replace(configs.config_for_shape(arch, arch.shape("gen_fast")),
+                              n_double=2, n_single=4, dtype=torch.float32)
+    specs = flux.specs(cfg)
+    params = param.init_params(specs, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    _redraw_zeros(torch, specs, params, 1)
+    b = 2
+    txt, vec = _flux_inputs(torch, cfg, b, 10)
+    lat = torch.randn((b, cfg.latent_res, cfg.latent_res, cfg.latent_channels), device="cuda",
+                      generator=torch.Generator(device="cuda").manual_seed(11))
+    tv = torch.tensor([0.3, 0.9], device="cuda")
+    g = torch.full((b,), 3.5, device="cuda")
+    t0 = time.perf_counter()
+    zero_counts()
+    out_k = flux.forward(params, cfg, lat, txt, vec, tv, g)
+    flux_counts = read_counts()
+    with ops.plain_versions():
+        out_p = flux.forward(params, cfg, lat, txt, vec, tv, g)
+    torch.cuda.synchronize()
+    err = (out_k - out_p).abs().max().item()
+    ok = bool(torch.isfinite(out_k).all()) and torch.allclose(out_k, out_p, **PARITY_F32)
+    exp = _expect(flash_attention=cfg.n_double + cfg.n_single)
+    print(f"[diffusion parity] flux-dev f32 cut to {cfg.n_double} double + {cfg.n_single} "
+          f"single blocks at full width ({_weights_gb(param, params):.3f} GB), B={b} "
+          f"{cfg.img_res} px ({cfg.n_img_tokens} + {cfg.txt_len} tokens): kernels vs plain "
+          f"max|d| {err:.3e} (|out| max {out_p.abs().max().item():.3f}), tol={PARITY_F32}; "
+          f"launches of the kernel run {_nz(flux_counts)} (implies {_nz(exp)}); "
+          f"{time.perf_counter() - t0:.1f} s {'ok' if ok else 'FAIL'}")
+    check(ok, "f32 flux parity failed")
+    check(flux_counts == exp, "f32 flux launch counts")
+    return dit_counts, flux_counts
+
+
+# ---------------------------------------------------------------------- vision
+
+# registry (architecture, shape) pairs: the serving shape at 224 px, and
+# Swin-B's 384 px shape (config_for_shape picks CONFIG_384, window 12)
+VISION = (("vit-b16", "serve_b128"), ("vit-l16", "serve_b128"), ("swin-b", "serve_b128"),
+          ("swin-b", "cls_384"), ("resnet-152", "serve_b128"))
+VISION_BF16_REL = 5e-2  # max|bf16 - f32 logits| / max|f32 logits| (CPU at B=2: 0.4-1.4e-2)
+
+
+def _draw_bn_stats(torch, params, seed: int) -> None:
+    """BatchNorm scale and var from U(0.5, 1.5), mean from N(0, 0.2^2): at
+    init (mean 0, var 1) eval-mode BatchNorm is an affine no-op."""
+    from repro_torch.models import param
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    for key, t in param.flatten(params).items():
+        parent, leaf = key.split("/")[-2:]
+        if not parent.startswith("bn"):
+            continue
+        if leaf in ("scale", "var"):
+            t.copy_(torch.rand(t.shape, generator=gen, device="cuda") + 0.5)
+        elif leaf == "mean":
+            t.copy_(0.2 * torch.randn(t.shape, generator=gen, device="cuda"))
+
+
+def vision_phase(torch) -> dict[str, dict[str, int]]:
+    """The registry's vision families at their serving shapes, bf16 weights
+    drawn on the card (BatchNorm statistics drawn too): images/s of the bf16
+    forward (median of 3 after a warm-up), then the f32 forward of the same
+    weights; logits within VISION_BF16_REL. ViT runs ``vit.forward``
+    (flash_mma a layer in bf16, the CUDA-core flash kernel in f32); Swin's
+    window attention and ResNet's convolutions launch none of the port's
+    kernels. Returns each counted run's launches."""
+    from repro_torch import configs
+    from repro_torch.models import param, resnet, swin, vit
+
+    family = {"vit": vit, "swin": swin, "resnet": resnet}
+    out = {}
+    for i, (name, shape_name) in enumerate(VISION):
+        arch = configs.get_arch(name)
+        shape = arch.shape(shape_name)
+        cfg, b = configs.config_for_shape(arch, shape), shape.batch
+        model = family[arch.family]
+        p16 = param.init_params(model.specs(cfg), torch.Generator(device="cuda").manual_seed(i),
+                                "cuda", dtype=torch.bfloat16)
+        if arch.family == "resnet":
+            _draw_bn_stats(torch, p16, 100 + i)
+        images = torch.randn((b, cfg.img_res, cfg.img_res, cfg.in_channels), device="cuda",
+                             generator=torch.Generator(device="cuda").manual_seed(50 + i))
+        model.forward(p16, cfg, images)  # warm-up
+        torch.cuda.synchronize()
+        walls = []
+        for _ in range(3):
+            zero_counts()
+            t0 = time.perf_counter()
+            logits16 = model.forward(p16, cfg, images)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            counts = read_counts()
+        p32 = param.tree_map(lambda a: a.float(), p16)
+        zero_counts()
+        logits32 = model.forward(p32, dataclasses.replace(cfg, dtype=torch.float32), images)
+        torch.cuda.synchronize()
+        counts32 = read_counts()
+        n_attn = cfg.n_layers if arch.family == "vit" else 0
+        exp16, exp32 = _expect(flash_attention_mma=n_attn), _expect(flash_attention=n_attn)
+        rel = ((logits16.float() - logits32).abs().max() / logits32.abs().max()).item()
+        top1 = (logits16.float().argmax(-1) == logits32.argmax(-1)).float().mean().item()
+        wall = _median(walls)
+        ok = (bool(torch.isfinite(logits16).all()) and rel <= VISION_BF16_REL
+              and tuple(logits16.shape) == (b, cfg.n_classes))
+        print(f"[vision] {name} {shape_name} ({cfg.img_res} px"
+              f"{f', window {cfg.window}' if arch.family == 'swin' else ''}) bf16 B={b}: "
+              f"{wall * 1e3:.2f} ms, {b / wall:.1f} images/s ({_n_params(param, p16)} "
+              f"parameters); bf16 vs f32 logits of the same weights: max|d| / max|f32| "
+              f"{rel:.4f} (tol {VISION_BF16_REL}), top-1 agree {top1:.3f}; launches bf16 "
+              f"{_nz(counts)} (implies {_nz(exp16)}), f32 {_nz(counts32)} (implies "
+              f"{_nz(exp32)}) "
+              f"{'ok' if ok else 'FAIL'}")
+        check(ok, f"{name} {shape_name} bf16 logits")
+        check(counts == exp16 and counts32 == exp32, f"{name} {shape_name} launch counts")
+        out[f"{name} {shape_name}"] = counts
+        out[f"{name} {shape_name} f32"] = counts32
+        del p16, p32, images, logits16, logits32
+        torch.cuda.empty_cache()
+    return out
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -9,6 +9,7 @@ reference's reduced model for CPU tests (5 experts padded to 8).
 """
 import torch
 
+from repro_torch.configs.base import LM_SHAPES, ArchSpec
 from repro_torch.models.lm import LMConfig
 from repro_torch.models.moe import MoEConfig
 
@@ -26,3 +27,9 @@ SMOKE = LMConfig(
     tie_embeddings=True, dtype=torch.float32,
     moe=MoEConfig(d_model=64, d_ff=32, n_experts=5, top_k=2, group_size=32,
                   n_experts_padded=8))
+
+ARCH = ArchSpec(
+    name="granite-moe-3b-a800m", family="lm", config=CONFIG, smoke_config=SMOKE,
+    shapes=LM_SHAPES, train_profile="fsdp_ep_tp", serve_profile="ep_tp",
+    source="hf:ibm-granite/granite-3.0-1b-a400m-base (family)",
+    notes="long_500k skipped: pure full-attention GQA. Experts padded 40->48.")

@@ -8,6 +8,7 @@ SwiGLU and untied branches of ``models.lm``.
 """
 import torch
 
+from repro_torch.configs.base import LM_SHAPES, ArchSpec
 from repro_torch.models.lm import LMConfig
 
 CONFIG = LMConfig(
@@ -19,3 +20,9 @@ SMOKE = LMConfig(
     n_layers=2, d_model=64, n_heads=4, n_kv=2, d_ff=128, vocab=128,
     head_dim=16, norm="rms", act="swiglu", attn_bias=False,
     tie_embeddings=False, dtype=torch.float32)
+
+ARCH = ArchSpec(
+    name="internlm2-1.8b", family="lm", config=CONFIG, smoke_config=SMOKE,
+    shapes=LM_SHAPES, train_profile="fsdp_tp", serve_profile="tp",
+    source="arXiv:2403.17297; hf",
+    notes="long_500k skipped: pure full-attention GQA (DESIGN.md).")

@@ -8,6 +8,7 @@ per-expert d_ff=768, vocab=151936, 128 experts top-8 (routing groups of
 """
 import torch
 
+from repro_torch.configs.base import LM_SHAPES, ArchSpec
 from repro_torch.models.lm import LMConfig
 from repro_torch.models.moe import MoEConfig
 
@@ -25,3 +26,10 @@ SMOKE = LMConfig(
     head_dim=16, norm="rms", act="swiglu", attn_bias=False, qk_norm=True,
     tie_embeddings=False, dtype=torch.float32,
     moe=MoEConfig(d_model=64, d_ff=32, n_experts=8, top_k=2, group_size=32))
+
+ARCH = ArchSpec(
+    name="qwen3-moe-30b-a3b", family="lm", config=CONFIG, smoke_config=SMOKE,
+    shapes=LM_SHAPES, train_profile="fsdp_ep_tp", serve_profile="ep_tp",
+    source="hf:Qwen/Qwen3-30B-A3B",
+    notes="long_500k skipped: pure full-attention GQA (DESIGN.md). "
+          "EP: 128 experts / 16-way model axis = 8 per chip.")

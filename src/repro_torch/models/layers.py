@@ -1,5 +1,4 @@
-"""Model building blocks in PyTorch (the ViT and LM subset of
-``repro.models.layers``).
+"""Model building blocks in PyTorch (counterpart of ``repro.models.layers``).
 
 Plain functions on tensors and nested dicts of parameters, in the
 reference's layout: weights are ``[d_in, d_out]`` masters cast to the
@@ -10,6 +9,8 @@ the Hopper kernels on a CUDA tensor, their plain versions on a CPU tensor.
 The reference's ``chunked_sdpa`` has no counterpart: the flash kernel is it.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -100,14 +101,24 @@ def linear(p: dict, x: torch.Tensor) -> torch.Tensor:
     return y
 
 
-def layernorm(p: dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    """f32 math and eps 1e-6, as the reference (torch's default is 1e-5)."""
+def _normalized(x: torch.Tensor, eps: float) -> torch.Tensor:
+    """(x - mean) / sqrt(var + eps) over the last axis, in f32."""
     xf = x.float()
     mu = xf.mean(dim=-1, keepdim=True)
     var = (xf - mu).square().mean(dim=-1, keepdim=True)
-    y = (xf - mu) * torch.rsqrt(var + eps)
-    y = y * p["scale"].float() + p["bias"].float()
+    return (xf - mu) * torch.rsqrt(var + eps)
+
+
+def layernorm(p: dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """f32 math and eps 1e-6, as the reference (torch's default is 1e-5)."""
+    y = _normalized(x, eps) * p["scale"].float() + p["bias"].float()
     return y.to(x.dtype)
+
+
+def layernorm_noparam(x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """Layernorm without scale or bias (the diffusion blocks' adaLN input),
+    f32 math and eps 1e-6, as the reference."""
+    return _normalized(x, eps).to(x.dtype)
 
 
 def rmsnorm(p: dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -286,3 +297,14 @@ def embed(p: dict, ids: torch.Tensor) -> torch.Tensor:
 def unembed(p: dict, x: torch.Tensor) -> torch.Tensor:
     """Tied output projection: x . table^T."""
     return x @ p["table"].to(x.dtype).T
+
+
+def timestep_embedding(t: torch.Tensor, dim: int, max_period: float = 10000.0) -> torch.Tensor:
+    """Sinusoidal embedding of t [B] (float, in [0, 1000]) -> [B, dim] f32:
+    ``cos(t * freqs) || sin(t * freqs)`` with ``freqs = exp(-log(max_period)
+    * i / half)``, as the reference."""
+    half = dim // 2
+    freqs = torch.exp(-math.log(max_period)
+                      * torch.arange(half, dtype=torch.float32, device=t.device) / half)
+    ang = t.float()[:, None] * freqs[None, :]
+    return torch.cat([torch.cos(ang), torch.sin(ang)], dim=-1)

@@ -155,6 +155,6 @@ def stack_specs(n: int, make_one: Callable[[], dict]) -> dict:
                     make_one())
 
 
-def layer_params(params: dict, l: int) -> dict:
-    """Layer ``l``'s slice of the stacked ``blocks/*`` params (views)."""
-    return tree_map(lambda a: a[l], params["blocks"])
+def layer_params(params: dict, l: int, key: str = "blocks") -> dict:
+    """Layer ``l``'s slice of the params stacked under ``key`` (views)."""
+    return tree_map(lambda a: a[l], params[key])

@@ -1,0 +1,168 @@
+"""ResNet (bottleneck), PyTorch port of ``repro.models.resnet`` (the
+resnet-152 architecture: depths 3-8-36-3, width 64).
+
+The interface is the reference's: NHWC activations, HWIO kernels, XLA's
+SAME padding. Inside, each convolution runs ``torch.nn.functional.conv2d``
+on the NHWC tensor viewed as NCHW (a ``channels_last`` tensor, the layout
+cuDNN prefers) with the kernel permuted to OIHW. The reference's
+convolution is XLA's, not a Pallas kernel, so cuDNN serves it here.
+
+SAME padding is asymmetric where the total is odd: XLA pads ``total // 2``
+before and the rest after (the 7x7/2 stem at 224 px pads (2, 3), the 3x3/2
+convolutions and the 3x3/2 max pool (0, 1)), which ``conv2d(padding=k//2)``
+would not reproduce. ``_same_pads`` computes XLA's pads; odd ones are
+applied with ``F.pad`` (``-inf`` for the max pool).
+
+BatchNorm keeps (scale, bias, mean, var): eval normalises with the stored
+statistics, train with the batch's (population variance), as the reference;
+the running statistics' update belongs to the training loop.
+
+Per stage, the first (strided, projecting) block has its own params and the
+remaining identical blocks are stacked over a leading axis (the reference
+scans them; they run one after another here). Token pruning does not apply
+(no tokens); Janus splits a CNN at stage boundaries (``stage_features``).
+
+Not ported yet: the sharding ``constrain`` annotation (a no-op on one
+device).
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models import layers as L
+from repro_torch.models.param import ParamSpec, layer_params, stack_specs
+
+
+@dataclasses.dataclass(frozen=True)
+class ResNetConfig:
+    depths: tuple[int, ...] = (3, 8, 36, 3)
+    width: int = 64
+    n_classes: int = 1000
+    in_channels: int = 3
+    img_res: int = 224
+    dtype: torch.dtype = torch.float32
+    expansion: int = 4
+
+
+def conv_specs(kh, kw, cin, cout) -> dict:
+    return {"w": ParamSpec((kh, kw, cin, cout), ("kh", "kw", "conv_in", "conv_out"),
+                           init="fan_in", scale=1.4142)}
+
+
+def _same_pads(size: int, k: int, stride: int) -> tuple[int, int]:
+    """XLA's SAME padding of one spatial axis: (before, after)."""
+    out = -(-size // stride)
+    total = max((out - 1) * stride + k - size, 0)
+    return total // 2, total - total // 2
+
+
+def _pad_nchw(x: torch.Tensor, k: int, stride: int, value: float = 0.0):
+    """x [B, C, H, W] padded as XLA's SAME; returns (x, symmetric pads)
+    where symmetric pads are left to the op (no copy)."""
+    ph, pw = _same_pads(x.shape[2], k, stride), _same_pads(x.shape[3], k, stride)
+    if ph[0] == ph[1] and pw[0] == pw[1]:
+        return x, (ph[0], pw[0])
+    return F.pad(x, (pw[0], pw[1], ph[0], ph[1]), value=value), (0, 0)
+
+
+def conv(p: dict, x: torch.Tensor, stride: int = 1) -> torch.Tensor:
+    """x [B, H, W, Cin] (NHWC) * HWIO kernel, SAME padding -> [B, H', W', Cout]."""
+    w = p["w"].to(x.dtype)
+    xc, pad = _pad_nchw(x.permute(0, 3, 1, 2), w.shape[0], stride)
+    y = F.conv2d(xc, w.permute(3, 2, 0, 1), stride=stride, padding=pad)
+    return y.permute(0, 2, 3, 1)
+
+
+def _max_pool(x: torch.Tensor) -> torch.Tensor:
+    """3x3/2 max pool, SAME padding with -inf, NHWC."""
+    xc, pad = _pad_nchw(x.permute(0, 3, 1, 2), 3, 2, value=-torch.inf)
+    return F.max_pool2d(xc, 3, 2, padding=pad).permute(0, 2, 3, 1)
+
+
+def bn_specs(c: int) -> dict:
+    return {"scale": ParamSpec((c,), ("conv_out",), init="ones"),
+            "bias": ParamSpec((c,), ("conv_out",), init="zeros"),
+            "mean": ParamSpec((c,), ("conv_out",), init="zeros"),
+            "var": ParamSpec((c,), ("conv_out",), init="ones")}
+
+
+def bn(p: dict, x: torch.Tensor, train: bool, eps: float = 1e-5) -> torch.Tensor:
+    """BatchNorm over NHWC in f32, cast back to x's dtype."""
+    xf = x.float()
+    if train:
+        mu = xf.mean(dim=(0, 1, 2))
+        var = (xf - mu).square().mean(dim=(0, 1, 2))  # jnp.var's two passes
+    else:
+        mu, var = p["mean"].float(), p["var"].float()
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    y = y * p["scale"].float() + p["bias"].float()
+    return y.to(x.dtype)
+
+
+def _bottleneck_specs(cin: int, cmid: int, cout: int, project: bool) -> dict:
+    p = {
+        "conv1": conv_specs(1, 1, cin, cmid), "bn1": bn_specs(cmid),
+        "conv2": conv_specs(3, 3, cmid, cmid), "bn2": bn_specs(cmid),
+        "conv3": conv_specs(1, 1, cmid, cout), "bn3": bn_specs(cout),
+    }
+    if project:
+        p["proj"] = conv_specs(1, 1, cin, cout)
+        p["bn_proj"] = bn_specs(cout)
+    return p
+
+
+def _bottleneck(bp: dict, x: torch.Tensor, stride: int, train: bool) -> torch.Tensor:
+    h = torch.relu(bn(bp["bn1"], conv(bp["conv1"], x), train))
+    h = torch.relu(bn(bp["bn2"], conv(bp["conv2"], h, stride=stride), train))
+    h = bn(bp["bn3"], conv(bp["conv3"], h), train)
+    if "proj" in bp:
+        x = bn(bp["bn_proj"], conv(bp["proj"], x, stride=stride), train)
+    return torch.relu(x + h)
+
+
+def specs(cfg: ResNetConfig) -> dict:
+    p: dict = {
+        "stem": conv_specs(7, 7, cfg.in_channels, cfg.width),
+        "bn_stem": bn_specs(cfg.width),
+    }
+    cin = cfg.width
+    for i, depth in enumerate(cfg.depths):
+        cmid = cfg.width * (2 ** i)
+        cout = cmid * cfg.expansion
+        p[f"stage{i}_first"] = _bottleneck_specs(cin, cmid, cout, project=True)
+        if depth > 1:
+            p[f"stage{i}_rest"] = stack_specs(
+                depth - 1, lambda cm=cmid, co=cout: _bottleneck_specs(co, cm, co, project=False))
+        cin = cout
+    p["head"] = L.linear_specs(cin, cfg.n_classes, axes=("embed", "vocab"))
+    return p
+
+
+def _stages(params: dict, cfg: ResNetConfig, images: torch.Tensor, train: bool):
+    """Yield the stem's output (after the max pool), then each stage's."""
+    x = images.to(cfg.dtype)
+    x = torch.relu(bn(params["bn_stem"], conv(params["stem"], x, stride=2), train))
+    x = _max_pool(x)
+    yield x
+    for i, depth in enumerate(cfg.depths):
+        x = _bottleneck(params[f"stage{i}_first"], x, 1 if i == 0 else 2, train)
+        for l in range(depth - 1):
+            x = _bottleneck(layer_params(params, l, f"stage{i}_rest"), x, 1, train)
+        yield x
+
+
+def forward(params: dict, cfg: ResNetConfig, images: torch.Tensor,
+            train: bool = False) -> torch.Tensor:
+    """images [B, H, W, C] (NHWC) -> logits [B, n_classes]."""
+    *_, x = _stages(params, cfg, images, train)
+    return L.linear(params["head"], x.mean(dim=(1, 2)))
+
+
+def stage_features(params: dict, cfg: ResNetConfig, images: torch.Tensor,
+                   train: bool = False) -> list[torch.Tensor]:
+    """Per-stage outputs (the stem's first): the Janus CNN splitter sizes
+    its transfers from them."""
+    return list(_stages(params, cfg, images, train))

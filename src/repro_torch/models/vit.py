@@ -36,6 +36,7 @@ class ViTConfig:
     in_channels: int = 3
     dtype: torch.dtype = torch.float32
     prop_attn: bool = True  # ToMe proportional attention when pruning
+    remat: bool = False  # the reference's training field; unused when serving
     fused_qkv: bool = False  # single fused QKV matmul
 
     @property

@@ -88,6 +88,42 @@ def test_serving_entry_points_raise_without_a_card():
     fleet.FleetRuntime(profile, cfg, streams, device="cpu")
 
 
+def test_generation_and_registry_models_raise_without_a_card():
+    """The samplers draw their noise, and every registry architecture's
+    params are built, on ``cuda`` unless told ``device="cpu"``."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    from repro_torch import configs
+    from repro_torch.configs import dit_s2, flux_dev
+    from repro_torch.models import dit, flux, lm, param, resnet, swin, vit
+    from repro_torch.training import diffusion
+
+    family = {"vit": vit, "swin": swin, "resnet": resnet, "lm": lm, "dit": dit, "flux": flux}
+    for name in configs.list_archs():
+        arch = configs.get_arch(name)
+        specs = family[arch.family].specs(arch.smoke_config)
+        with pytest.raises(RuntimeError, match="cuda"):
+            param.init_params(specs, torch.Generator())
+        param.init_params(specs, torch.Generator(), device="cpu")
+
+    gen = torch.Generator().manual_seed(0)
+    dcfg, fcfg = dit_s2.SMOKE, flux_dev.SMOKE
+    dp = param.init_params(dit.specs(dcfg), gen, "cpu")
+    fp = param.init_params(flux.specs(fcfg), gen, "cpu")
+    y = torch.tensor([1, 2])
+    txt, vec = torch.zeros((2, fcfg.txt_len, fcfg.t5_dim)), torch.zeros((2, fcfg.clip_dim))
+    with pytest.raises(RuntimeError, match="cuda"):
+        diffusion.dit_sample(dp, dcfg, gen, y, 1)
+    with pytest.raises(RuntimeError, match="cuda"):
+        diffusion.dit_sample(dp, dcfg, gen, y, 1, schedule=(3, 2))
+    with pytest.raises(RuntimeError, match="cuda"):
+        diffusion.flux_sample(fp, fcfg, gen, txt, vec, 1)
+    assert diffusion.dit_sample(dp, dcfg, gen, y, 1, schedule=(3, 2), device="cpu").shape == (
+        2, dcfg.latent_res, dcfg.latent_res, dcfg.latent_channels)
+    assert diffusion.flux_sample(fp, fcfg, gen, txt, vec, 1, device="cpu").shape == (
+        2, fcfg.latent_res, fcfg.latent_res, fcfg.latent_channels)
+
+
 def test_engine_rejects_tensors_on_another_device():
     """The engine moves nothing between devices: params or images that do
     not lie on its device raise instead of running there."""

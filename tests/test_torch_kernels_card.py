@@ -10,7 +10,8 @@ Tolerances: flash f32 atol 2e-5 / rtol 1e-4, bf16 atol 2e-2 (f32 scores
 and accumulation on both sides, one rounding of the output; the tensor-core
 kernels also round the softmax weights to bf16 before P.V, which
 ``tests/test_torch_kernels.py`` shows stays inside 2e-2 by emulating them on
-the CPU); tome max atol 2e-5 / rtol 1e-3 and argmax
+the CPU) and, beside it, 3e-2 of max|plain| (at thousands of keys an output
+is ~sqrt(e/S) ~ 0.025, so 2e-2 alone would pass a wrong kernel); tome max atol 2e-5 / rtol 1e-3 and argmax
 by score at the chosen index (``tests/test_kernels.py``'s own); decode as
 flash. The flash and decode tests assert which kernel launched
 (``launches_mma``).
@@ -24,6 +25,7 @@ from repro_torch.kernels import ref
 from repro_torch.kernels import tome_scores as tome_mod
 
 ATOL, RTOL = 2e-5, 1e-4
+BF16_OF_MAX = 3e-2  # bf16 flash: max|kernel - plain| <= this x max|plain|, too
 
 
 @pytest.fixture
@@ -54,6 +56,9 @@ def _check_flash(q, k, v, **kw):
     tol = dict(atol=ATOL, rtol=RTOL) if q.dtype == torch.float32 else dict(atol=2e-2, rtol=0)
     assert torch.isfinite(out).all()
     torch.testing.assert_close(out.float(), exp.float(), **tol)
+    if q.dtype == torch.bfloat16:
+        err = (out.float() - exp.float()).abs().max()
+        assert err <= BF16_OF_MAX * exp.float().abs().max()
     return out
 
 
@@ -116,6 +121,36 @@ def test_flash_mma_lm_prefill_shape_on_card(cuda):
     """starcoder2-3b's prefill call: [8, 24, 1024, 128] bf16, causal."""
     _, q, k, v, _ = _flash_case(cuda, 8, 24, 1024, 1024, 128, torch.bfloat16, seed=7)
     _check_flash(q, k, v, causal=True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,h,s,d,with_bias", [
+    (4, 6, 4096, 64, True), (4, 6, 4096, 64, False), (2, 24, 1536, 128, False),
+    (4, 6, 3141, 64, True), (4, 6, 2044, 64, True),
+], ids=["dit-janus-gen1024", "dit-dense-gen1024", "flux-gen-fast",
+        "dit-janus-gen1024-layer1", "dit-janus-gen1024-layer11"])
+def test_flash_mma_diffusion_shapes_on_card(cuda, b, h, s, d, with_bias):
+    """dit-s2 at gen_1024 (4096 tokens, D=64; the Janus forward adds the
+    ToMe log-size bias, and its later layers attend the merged lengths, 3141
+    at the second and 2044 at the last, neither a multiple of a 64-key tile)
+    and flux-dev's joint attention at gen_fast (1024 + 512 tokens, D=128,
+    non-causal, no bias)."""
+    gen, q, k, v, _ = _flash_case(cuda, b, h, s, s, d, torch.bfloat16, seed=11)
+    bias = None
+    if with_bias:
+        sizes = torch.randint(1, 9, (b, s), generator=gen, device=cuda).float()
+        bias = torch.log(sizes)
+    _check_flash(q, k, v, bias=bias)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("h", [12, 16], ids=["vit-b16", "vit-l16"])
+def test_flash_vision_serve_shapes_on_card(cuda, h, dtype):
+    """vit-b16 and vit-l16 at serve_b128: 128 images of 197 tokens, D=64, no
+    bias; bf16 on the tensor-core kernel, f32 on the CUDA-core one."""
+    _, q, k, v, _ = _flash_case(cuda, 128, h, 197, 197, 64, dtype, seed=12)
+    _check_flash(q, k, v)
 
 
 @pytest.mark.gpu
@@ -193,6 +228,18 @@ def test_tome_kernel_matches_plain_on_card(cuda, b, na, nb, d):
     nb_len = torch.randint(1, nb + 1, (b,), generator=gen, device=cuda, dtype=torch.int32)
     for extra in (None, nb_len):
         _check_tome(a, bb, extra)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("na,nb", [(2048, 2048), (1571, 1570), (1022, 1022)],
+                         ids=["layer0", "layer1", "layer11"])
+def test_tome_kernel_dit_merge_shapes_on_card(cuda, na, nb):
+    """dit-s2's first, second and last merge layers at gen_1024: 4096, 3141
+    and 2044 tokens split into the alternating A and B sets (the first 7x
+    the rows of any ViT call)."""
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    a, bb = _unit(cuda, gen, (4, na, 64)), _unit(cuda, gen, (4, nb, 64))
+    _check_tome(a, bb, None)
 
 
 @pytest.mark.gpu
