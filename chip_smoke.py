@@ -112,6 +112,23 @@ each failing the run on any failed check:
             and 384 px, window 12) and resnet-152 at their serving shapes in
             bf16: images/s, and bf16 logits against f32 logits of the same
             weights within a stated tolerance; ViT launches flash_mma a layer.
+15. train:  the flash kernel's backward (explicit PyTorch through its
+            autograd Function) against autograd of the plain version at the
+            train call [32,16,577,64] bf16 and at [2,24,1024,128] causal,
+            timed beside SDPA's backward, and two wrong backwards that must
+            read above its limit; then vit-l16 at ``cls_384`` with
+            ``--full`` (304 M parameters, bf16 params, f32 moments, global
+            batch 64 in 2 microbatches, remat) through
+            ``repro_torch.launch.train.main``: 4 steps with a checkpoint at
+            step 2, the step-4 checkpoint restored bit for bit, ``--resume``
+            for 2 more; step ms, images/s, model TFLOP/s, peak memory;
+            flash_mma launches exactly 2 (forward and remat) x 24 x 2 a step;
+            one profiled step (idle share, the flash backward's share); one
+            bf16 step's gradients with the kernels against the plain versions
+            (loss, gradient norm, cosine, least leaf cosine) and an f32 step
+            of vit-l16 cut to 4 layers at B=4 (every gradient leaf), each
+            also run with the wrong backwards (and bf16 with a wrong
+            forward), which must break a limit.
 
 The line before the last is the kernels JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without a card, or outside a checkout, it
@@ -164,6 +181,9 @@ DIFFUSION_FLASH = (("dit gen_1024 janus", 4, 6, 4096, 64, True),
 # tensor-core kernel, f32 (its reference logits) on the CUDA-core one
 VISION_FLASH = (("vit-b16 serve_b128", 128, 12, 197, 64, False),
                 ("vit-l16 serve_b128", 128, 16, 197, 64, False))
+# [train]'s vit.forward calls: vit-l16 at cls_384, a microbatch of 32 images of
+# 577 tokens, no bias (accum 2 of the global batch of 64), forward and remat
+TRAIN_FLASH = (("vit-l16 cls_384 train", 32, 16, 577, 64, False),)
 # tome_scores calls: ViT B=1 and B=8 (289 x 288), dit-s2's merges at gen_1024:
 # the first (4096 tokens), the second (3141) and the last (2044)
 TOME_SHAPES = ((1, 289, 288), (8, 289, 288), (4, 2048, 2048), (4, 1571, 1570), (4, 1022, 1022))
@@ -243,6 +263,8 @@ def main() -> int:
     paths["dit_f32_parity"], paths["flux_f32_parity"] = diffusion_parity_phase(torch)
     torch.cuda.empty_cache()
     paths.update(vision_phase(torch))
+    torch.cuda.empty_cache()
+    paths.update(train_phase(torch))
 
     for row in rows:
         name = row["name"]
@@ -325,8 +347,8 @@ def time_ms(torch, fn, iters: int = 30, queued: bool = False) -> float:
     fail("time_ms: the host could not queue the calls within the sleep")
 
 
-def device_us(torch, fn, iters: int = 20) -> dict[str, float]:
-    """Mean µs on the card per launch of each kernel that ``fn`` launches
+def _device_times(torch, fn, iters: int) -> dict[str, list[float]]:
+    """µs on the card of every launch of each kernel that ``fn`` launches
     (the port's by their names, others by a prefix), by torch.profiler over
     ``iters`` calls after one warm call."""
     from torch.autograd import DeviceType
@@ -344,7 +366,18 @@ def device_us(torch, fn, iters: int = 20) -> dict[str, float]:
             m = PORT_KERNEL.search(ev.name)
             times.setdefault(m.group(0) if m else ev.name[:40], []).append(
                 ev.time_range.elapsed_us())
-    return {name: sum(ts) / len(ts) for name, ts in times.items()}
+    return times
+
+
+def device_us(torch, fn, iters: int = 20) -> dict[str, float]:
+    """Mean µs on the card per launch of each kernel that ``fn`` launches."""
+    return {name: sum(ts) / len(ts) for name, ts in _device_times(torch, fn, iters).items()}
+
+
+def device_us_per_call(torch, fn, iters: int = 5) -> dict[str, tuple[float, float]]:
+    """(launches, µs on the card) per call of ``fn``, by kernel name."""
+    return {name: (len(ts) / iters, sum(ts) / iters)
+            for name, ts in _device_times(torch, fn, iters).items()}
 
 
 def fmt_us(times: dict[str, float]) -> str:
@@ -499,7 +532,7 @@ def kernel_phase(torch) -> list[dict]:
         flash_case("LM prefill causal", 8, dtype, sq=1024, sk=1024, causal=True, h=24, d=128,
                    with_bias=False)
     flash_case("small head dim", 2, torch.bfloat16, h=4, d=32)
-    for label, b, hh, ss, dd, with_bias in DIFFUSION_FLASH + VISION_FLASH:
+    for label, b, hh, ss, dd, with_bias in DIFFUSION_FLASH + VISION_FLASH + TRAIN_FLASH:
         flash_case(label, b, torch.bfloat16, sq=ss, sk=ss, h=hh, d=dd, with_bias=with_bias,
                    wrong=True)
     for label, b, hh, ss, dd, with_bias in VISION_FLASH:
@@ -517,7 +550,7 @@ def kernel_phase(torch) -> list[dict]:
         if kernel == flash_mod.MMA:  # the MoE prefills and the diffusion paths: bf16 only
             shapes += [(label, 8, hh, 1024, dd, True, False) for label, hh, dd in MOE_PREFILL]
             shapes += [(label, b, hh, ss, dd, False, with_bias)
-                       for label, b, hh, ss, dd, with_bias in DIFFUSION_FLASH]
+                       for label, b, hh, ss, dd, with_bias in DIFFUSION_FLASH + TRAIN_FLASH]
         shapes += [(label, b, hh, ss, dd, False, with_bias)
                    for label, b, hh, ss, dd, with_bias in VISION_FLASH]
         for label, b, hh, ss, dd, causal, with_bias in shapes:
@@ -996,6 +1029,8 @@ PORT_KERNEL = re.compile(r"\b(flash_mma_fwd|flash_fwd|tome_scores|decode_mma_par
 
 
 MOE_RANGE = "moe.apply"
+FLASH_BWD_RANGE = "flash_attention.backward"
+RANGES = (MOE_RANGE, FLASH_BWD_RANGE)  # profiler ranges of this script, not kernels
 
 
 def profile_once(torch, label: str, fn, moe_split: bool = False):
@@ -1063,7 +1098,7 @@ def report_profile(label: str, prof, wall_ms: float) -> float:
     for ev in prof.events():
         # a profiler range (moe.apply) also appears on the card's timeline,
         # spanning its kernels: it is not a kernel
-        if ev.device_type == DeviceType.CUDA and ev.name != MOE_RANGE:
+        if ev.device_type == DeviceType.CUDA and ev.name not in RANGES:
             kernels.setdefault(ev.name, []).append(ev.time_range.elapsed_us() / 1e3)
     busy_ms = sum(sum(v) for v in kernels.values())
     n = sum(len(v) for v in kernels.values())
@@ -2204,6 +2239,418 @@ def vision_phase(torch) -> dict[str, dict[str, int]]:
         del p16, p32, images, logits16, logits32
         torch.cuda.empty_cache()
     return out
+
+
+# ----------------------------------------------------------------------- train
+
+TRAIN_ARCH, TRAIN_SHAPE = "vit-l16", "cls_384"
+TRAIN_STEPS, TRAIN_RESUME_STEPS, TRAIN_CKPT_EVERY = 4, 2, 2
+# the flash backward's calls: the train path's, and an LM train shape's head dim
+TRAIN_BWD = (("vit-l16 cls_384 train", 32, 16, 577, 64, False),
+             ("LM train causal D=128", 2, 24, 1024, 128, True))
+# bf16 dq/dk/dv against autograd of the plain version in f32: P, dS and the
+# gradients are rounded to bf16 once, the forward's output comes from the bf16
+# kernel. Sound readings 2.7e-3 to 3.9e-3 of max|g| on the card, 2.4e-3 to
+# 4.9e-3 on the CPU; the wrong backwards of wrong_flash_backwards read 0.17
+# and above on the CPU
+FLASH_BWD_BF16_OF_MAX = 1e-2
+# one bf16 step's gradients, kernels against plain versions (two bf16 models
+# that round attention at other places, 24 layers deep): the loss, the
+# gradient norm, the cosine of the flat gradients, and the least cosine of a
+# leaf whose plain norm is at least leaf_floor of the largest leaf's (the key
+# biases' gradients are zero but for rounding)
+TRAIN_BF16 = dict(loss_rel=1e-3, gnorm_rel=1e-3, cosine=0.999, leaf_cosine=0.9995,
+                  leaf_floor=1e-3)
+# f32 step, kernels against plain versions, every leaf: within of_max of the
+# largest |g| of any leaf, and within of_leaf of its own max|g| unless that is
+# below rounding_only of the largest (the key biases: zero but for rounding)
+GRAD_F32 = dict(of_max=1e-5, of_leaf=1e-5, rounding_only=1e-6)
+
+
+def wrong_flash_backwards(flash_mod) -> dict:
+    """Two plainly wrong flash backwards made from the sound one, which the
+    backward's and the train parity's limits must reject: dS without its
+    rowsum(dO * O) term (dQ and dK wrong), and key tile 0's dK and dV
+    dropped."""
+    sound = flash_mod.backward
+
+    def no_rowsum(q, k, v, out, dout, **kw):
+        return sound(q, k, v, out.new_zeros(out.shape), dout, **kw)
+
+    def key_tile_dropped(q, k, v, out, dout, **kw):
+        dq, dk, dv, dbias = sound(q, k, v, out, dout, **kw)
+        dk, dv = dk.clone(), dv.clone()
+        dk[:, :, :64] = 0
+        dv[:, :, :64] = 0
+        return dq, dk, dv, dbias
+
+    return {"rowsum(dO*O) dropped": no_rowsum, "key tile 0's dK, dV dropped": key_tile_dropped}
+
+
+def wrong_flash_forward(torch, ref):
+    """A plainly wrong flash forward: the plain version with key tile 0
+    masked out."""
+    def forward(q, k, v, bias, kv_len, causal):
+        drop = torch.zeros(k.shape[0], k.shape[2], device=k.device)
+        drop[:, :64] = -torch.inf
+        return ref.flash_attention_ref(q, k, v, bias=drop if bias is None else bias + drop,
+                                       kv_len=kv_len, causal=causal)
+    return forward
+
+
+def swapped_in(module, name: str, fn):
+    """A context in which ``module.name`` is ``fn``."""
+    import contextlib
+
+    @contextlib.contextmanager
+    def ctx():
+        old = getattr(module, name)
+        setattr(module, name, fn)
+        try:
+            yield
+        finally:
+            setattr(module, name, old)
+    return ctx()
+
+
+def flash_backward_phase(torch) -> dict[str, float]:
+    """The flash kernel's backward (its autograd Function: the kernel's
+    forward, explicit PyTorch backward) against autograd of the plain version
+    in f32 on the same bf16 inputs, and its time beside SDPA's backward.
+    Returns the backward's ms per call at each shape. Launches here compare
+    and time; they are on no path."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as flash_mod
+    from repro_torch.kernels import ref
+
+    gen = torch.Generator(device="cuda").manual_seed(30)
+    ms_by_label = {}
+    for label, b, h, s, d, causal in TRAIN_BWD:
+        q, k, v = (torch.randn((b, h, s, d), generator=gen, device="cuda").to(torch.bfloat16)
+                   .requires_grad_() for _ in "qkv")
+        dout = torch.randn((b, h, s, d), generator=gen, device="cuda").to(torch.bfloat16)
+        out = flash_mod.flash_attention(q, k, v, causal=causal)
+        got = torch.autograd.grad(out, (q, k, v), dout)
+        pf = [t.detach().float().requires_grad_() for t in (q, k, v)]
+        exp = torch.autograd.grad(ref.flash_attention_ref(*pf, causal=causal), pf, dout.float())
+        def of_max(grads):
+            return [((g.float() - e).abs().max() / e.abs().max()).item()
+                    for g, e in zip(grads, exp)]
+        rel = of_max(got)
+        ok = all(torch.isfinite(g).all() for g in got) and max(rel) <= FLASH_BWD_BF16_OF_MAX
+        print(f"[train] flash backward {label}: q,k,v [{b},{h},{s},{d}] bf16"
+              f"{', causal' if causal else ''}: max|d| / max|g| dq {rel[0]:.3e} dk "
+              f"{rel[1]:.3e} dv {rel[2]:.3e} against autograd of the plain version in f32 "
+              f"(tol {FLASH_BWD_BF16_OF_MAX}) {'ok' if ok else 'FAIL'}")
+        check(ok, f"flash backward {label} disagrees with autograd of its plain version")
+        qd, kd, vd, od = q.detach(), k.detach(), v.detach(), out.detach()
+        wrong = {name: max(of_max(fn(qd, kd, vd, od, dout, causal=causal)[:3]))
+                 for name, fn in wrong_flash_backwards(flash_mod).items()}
+        print(f"[train] flash backward {label}: a wrong backward would read "
+              + ", ".join(f"{name} {r:.3e}" for name, r in wrong.items())
+              + f" of max|g| (limit {FLASH_BWD_BF16_OF_MAX})")
+        check(min(wrong.values()) > FLASH_BWD_BF16_OF_MAX,
+              f"the flash backward's limit does not reject a wrong backward at {label}")
+        del got, exp, pf
+        ms = time_ms(torch, lambda: flash_mod.backward(qd, kd, vd, od, dout, causal=causal), 10)
+
+        def sdpa_fwd():
+            return F.scaled_dot_product_attention(q, k, v, is_causal=causal)
+        fwd_ms = time_ms(torch, sdpa_fwd, 10)
+        both_ms = time_ms(torch, lambda: torch.autograd.grad(sdpa_fwd(), (q, k, v), dout), 10)
+        pairs = s * (s + 1) / 2 if causal else s * s
+        # five products of 2 D flops per (query, key) pair: S, dP, dV, dQ, dK
+        b_ms, b_by = bound(10.0 * b * h * d * pairs, 8 * q.numel() * 2, PEAK_BF16)
+        print(f"[train] flash backward {label} timing: {ms:.4f} ms a call (plain PyTorch: f32 "
+              f"S and dP products, bf16 dV, dQ, dK products, f32 softmax passes over "
+              f"[{b},{h},{s},{s}]); SDPA backward {both_ms - fwd_ms:.4f} ms (forward + "
+              f"backward {both_ms:.4f} less forward {fwd_ms:.4f}); bound {b_ms:.4f} ms "
+              f"({b_by}); {ms / max(both_ms - fwd_ms, 1e-9):.2f}x SDPA's backward")
+        per_call = device_us_per_call(torch, lambda: flash_mod.backward(
+            qd, kd, vd, od, dout, causal=causal))
+        busy = sum(us for _, us in per_call.values())
+        print(f"[train] flash backward {label} on the card per call (profiler; launches x, "
+              f"µs): " + ", ".join(f"{name} {n:g}x {us:.2f}" for name, (n, us) in
+                                   per_call.items())
+              + f"; kernels {busy:.2f} µs of the {ms * 1e3:.2f} timed")
+        ms_by_label[label] = ms
+        del q, k, v, dout, out, qd, kd, vd, od
+        torch.cuda.empty_cache()
+    return ms_by_label
+
+
+def bf16_step_readings(param, loss_k, grads_k, loss_p, grads_p) -> dict:
+    """A bf16 step's gradients (``grads_k``) against the plain step's: the
+    loss and gradient norm as a share of the plain ones, the cosine of the
+    flat gradients, and the least cosine of a leaf whose plain norm is at
+    least ``TRAIN_BF16["leaf_floor"]`` of the largest leaf's; f64 sums."""
+    fk, fp = param.flatten(grads_k), param.flatten(grads_p)
+    dots = {}
+    for key, y in fp.items():
+        x, y = fk[key].double(), y.double()
+        dots[key] = (float((x * y).sum()), float((x * x).sum()), float((y * y).sum()))
+    dot, nk, np_ = (sum(t[i] for t in dots.values()) for i in range(3))
+    floor = TRAIN_BF16["leaf_floor"] ** 2 * max(t[2] for t in dots.values())
+    top = max(t[2] for t in dots.values()) ** 0.5
+    leaf_cos = {key: d / max(a * b, 1e-300) ** 0.5 for key, (d, a, b) in dots.items()
+                if b >= floor}
+    shares = {key: t[2] ** 0.5 / top for key, t in dots.items()}
+    least = min(leaf_cos, key=leaf_cos.get)
+    lk, lp = float(loss_k), float(loss_p)
+    return {"loss": lk, "loss_rel": abs(lk - lp) / abs(lp),
+            "gnorm": nk ** 0.5, "gnorm_rel": abs(nk ** 0.5 - np_ ** 0.5) / np_ ** 0.5,
+            "cosine": dot / (nk * np_) ** 0.5, "leaf_cosine": leaf_cos[least],
+            "least_leaf": least, "n_leaves": len(leaf_cos), "leaf_cosines": leaf_cos,
+            "norm_shares": shares}
+
+
+def bf16_step_broken(r: dict) -> list[str]:
+    """The ``TRAIN_BF16`` limits that readings ``r`` break."""
+    return ([k for k in ("loss_rel", "gnorm_rel") if not r[k] <= TRAIN_BF16[k]]
+            + [k for k in ("cosine", "leaf_cosine") if not r[k] >= TRAIN_BF16[k]])
+
+
+def f32_step_readings(param, loss_k, grads_k, loss_p, grads_p) -> dict:
+    """An f32 step's gradients against the plain step's, by ``GRAD_F32``:
+    each leaf's max|d| as a share of the largest |g| of any leaf and, for
+    the leaves above rounding, of its own max|g|."""
+    fk, fp = param.flatten(grads_k), param.flatten(grads_p)
+    top = max(float(g.abs().max()) for g in fp.values())
+    r = {"loss_rel": abs(float(loss_k) - float(loss_p)) / abs(float(loss_p)),
+         "of_max": 0.0, "of_leaf": 0.0, "worst_leaf": "", "n_real": 0, "n": len(fp)}
+    for key, e in fp.items():
+        err, own = float((fk[key] - e).abs().max()), float(e.abs().max())
+        r["of_max"] = max(r["of_max"], err / top)
+        if own >= GRAD_F32["rounding_only"] * top:
+            r["n_real"] += 1
+            if err / own >= r["of_leaf"]:
+                r["of_leaf"], r["worst_leaf"] = err / own, key
+    return r
+
+
+def f32_step_broken(r: dict) -> list[str]:
+    """The ``GRAD_F32`` limits (and the loss's 1e-5) that readings ``r`` break."""
+    return ([k for k in ("of_max", "of_leaf") if not r[k] <= GRAD_F32[k]]
+            + ([] if r["loss_rel"] <= 1e-5 else ["loss_rel"]))
+
+
+def train_parity_phase(torch, params, opt, batch, bundle) -> tuple[dict, dict]:
+    """One bf16 step's gradients (both microbatches, before the update) from
+    the trained params, through the kernels and under ``ops.plain_versions``;
+    then vit-l16 cut to 4 layers at B=4 in f32, every gradient leaf. Each
+    also runs with plainly wrong flash backwards (and the bf16 step with a
+    wrong forward), which must break its limits. Returns the kernel runs'
+    launches."""
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention as flash_mod
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch import steps
+    from repro_torch.models import param, vit
+
+    def wrong():
+        """(name, context) of each wrong backward."""
+        return [(f"backward with {name}", swapped_in(flash_mod, "backward", fn))
+                for name, fn in wrong_flash_backwards(flash_mod).items()]
+    arch = configs.get_arch(TRAIN_ARCH)
+    cfg = configs.config_for_shape(arch, arch.shape(TRAIN_SHAPE))
+
+    def grads16():
+        return steps.accumulated_grads(bundle.loss_fn, params, batch, opt["step"], bundle.accum)
+
+    zero_counts()
+    loss_k, grads_k = grads16()
+    torch.cuda.synchronize()
+    counts16 = read_counts()
+    with ops.plain_versions():
+        loss_p, grads_p = grads16()
+    torch.cuda.synchronize()
+    r = bf16_step_readings(param, loss_k, grads_k, loss_p, grads_p)
+    del grads_k
+    broken = bf16_step_broken(r)
+    exp16 = _expect(flash_attention_mma=2 * cfg.n_layers * bundle.accum)
+    print(f"[train parity] {TRAIN_ARCH} {TRAIN_SHAPE} bf16, one step's gradients (accum "
+          f"{bundle.accum}) through the kernels vs the plain versions: loss {r['loss']:.6f} vs "
+          f"{float(loss_p):.6f} (rel {r['loss_rel']:.3e}), gradient norm {r['gnorm']:.6f} (rel "
+          f"{r['gnorm_rel']:.3e}), cosine {r['cosine']:.6f}, least cosine of {r['n_leaves']} "
+          f"leaves {r['leaf_cosine']:.6f} ({r['least_leaf']}) (tol {TRAIN_BF16}); launches "
+          f"{_nz(counts16)} (implies {_nz(exp16)}) {'FAIL ' + str(broken) if broken else 'ok'}")
+    print("[train parity] bf16 leaves (cosine, plain norm / largest leaf's): " + ", ".join(
+        f"{k} ({r['leaf_cosines'].get(k, float('nan')):.6f}, {share:.2e})"
+        for k, share in r["norm_shares"].items()))
+    check(not broken and counts16 == exp16, "bf16 train step: kernels vs plain versions")
+    for name, ctx in wrong() + [("forward with key tile 0 dropped",
+                               swapped_in(flash_mod, "_forward", wrong_flash_forward(torch, ref)))]:
+        with ctx:
+            loss_w, grads_w = grads16()
+        w = bf16_step_readings(param, loss_w, grads_w, loss_p, grads_p)
+        del grads_w
+        broken = bf16_step_broken(w)
+        print(f"[train parity] bf16 control, a {name}: loss rel {w['loss_rel']:.3e}, gradient "
+              f"norm rel {w['gnorm_rel']:.3e}, cosine {w['cosine']:.6f}, least leaf cosine "
+              f"{w['leaf_cosine']:.6f} ({w['least_leaf']}): breaks {broken}")
+        check(bool(broken), f"the bf16 train parity's limits do not reject a {name}")
+    del grads_p
+    torch.cuda.empty_cache()
+
+    cfg = dataclasses.replace(cfg, n_layers=4, dtype=torch.float32)
+    p32 = param.init_params(vit.specs(cfg), torch.Generator(device="cuda").manual_seed(40),
+                            "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    images = torch.randn((4, cfg.img_res, cfg.img_res, 3), generator=gen, device="cuda")
+    labels = torch.randint(0, cfg.n_classes, (4,), generator=gen, device="cuda",
+                           dtype=torch.int32)
+
+    def loss_fn(p, b):
+        return steps._ce_loss(vit.forward(p, cfg, b["images"]), b["labels"])
+
+    b32 = {"images": images, "labels": labels}
+    zero_counts()
+    l_k, g_k = steps.value_and_grad(loss_fn, p32, b32)
+    torch.cuda.synchronize()
+    counts32 = read_counts()
+    with ops.plain_versions():
+        l_p, g_p = steps.value_and_grad(loss_fn, p32, b32)
+    r = f32_step_readings(param, l_k, g_k, l_p, g_p)
+    broken = f32_step_broken(r)
+    exp32 = _expect(flash_attention=2 * cfg.n_layers)
+    print(f"[train parity] {TRAIN_ARCH} f32 cut to {cfg.n_layers} layers, B=4 at "
+          f"{cfg.img_res} px: loss {float(l_k):.7f} vs {float(l_p):.7f}; {r['n']} gradient "
+          f"leaves ({r['n_real']} above rounding), worst {r['of_leaf']:.3e} of its max|g| "
+          f"({r['worst_leaf']}), {r['of_max']:.3e} of the largest (tol {GRAD_F32}); launches "
+          f"{_nz(counts32)} (implies {_nz(exp32)}) {'FAIL ' + str(broken) if broken else 'ok'}")
+    check(not broken and counts32 == exp32, "f32 train step: kernels vs plain versions")
+    for name, ctx in wrong():
+        with ctx:
+            l_w, g_w = steps.value_and_grad(loss_fn, p32, b32)
+        w = f32_step_readings(param, l_w, g_w, l_p, g_p)
+        broken = f32_step_broken(w)
+        print(f"[train parity] f32 control, a {name}: worst {w['of_leaf']:.3e} of its max|g| "
+              f"({w['worst_leaf']}), {w['of_max']:.3e} of the largest: breaks {broken}")
+        check(bool(broken), f"the f32 train parity's limits do not reject a {name}")
+    return counts16, counts32
+
+
+def profile_train_step(torch, bundle, params, opt, batch, calls_per_step: int,
+                       bwd_call_ms: float) -> None:
+    """torch.profiler over one train step after one warm step, each flash
+    backward inside a profiler range: the step's idle share and the flash
+    backward's share of its kernel time. The steps update params and opt."""
+    from torch.autograd import DeviceType
+    from torch.profiler import record_function
+
+    from repro_torch.kernels import flash_attention as flash_mod
+
+    backward = flash_mod.backward
+
+    def ranged(*args, **kw):
+        with record_function(FLASH_BWD_RANGE):
+            return backward(*args, **kw)
+
+    flash_mod.backward = ranged
+    try:
+        prof, busy_ms, wall_ms = profile_once(
+            torch, f"train {TRAIN_ARCH} {TRAIN_SHAPE} step",
+            lambda: bundle.step_fn(params, opt, batch))
+    finally:
+        flash_mod.backward = backward
+    spans = [ev for ev in prof.events()
+             if ev.name == FLASH_BWD_RANGE and ev.device_type == DeviceType.CPU]
+    bwd_ms = sum(ev.device_time_total for ev in spans) / 1e3
+    timed = calls_per_step * bwd_call_ms
+    if bwd_ms and busy_ms:
+        share = f"{bwd_ms:.3f} ms in {len(spans)} ranges, {bwd_ms / busy_ms:.3f} of kernel time"
+    else:
+        share = (f"not measured by the profiler ({len(spans)} ranges; it linked no kernel "
+                 "to them)")
+    print(f"[trace] train {TRAIN_ARCH} {TRAIN_SHAPE} step: flash backward {share}; "
+          f"timed alone, {calls_per_step} calls x {bwd_call_ms:.4f} ms = {timed:.3f} ms, "
+          f"{timed / wall_ms:.3f} of the profiled step's wall")
+
+
+def train_phase(torch) -> dict[str, dict[str, int]]:
+    """vit-l16 at cls_384, full size, through ``launch.train.main`` on the
+    card: train, checkpoint, restore, resume; then one profiled step and the
+    parity steps. Returns each counted run's launches."""
+    import shutil
+    import tempfile
+
+    from repro_torch import configs
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.data import pipeline
+    from repro_torch.launch import steps, train
+    from repro_torch.models import param
+
+    t_phase = time.perf_counter()
+    bwd_ms = flash_backward_phase(torch)
+    arch = configs.get_arch(TRAIN_ARCH)
+    cfg = configs.config_for_shape(arch, arch.shape(TRAIN_SHAPE))
+    bundle = steps.build_bundle(TRAIN_ARCH, TRAIN_SHAPE, None)
+    ckdir = tempfile.mkdtemp(prefix="repro_torch_train_")
+    common = ["--arch", TRAIN_ARCH, "--shape", TRAIN_SHAPE, "--full", "--ckpt-dir", ckdir,
+              "--log-every", "1"]
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        first = train.main(common + ["--steps", str(TRAIN_STEPS),
+                                     "--ckpt-every", str(TRAIN_CKPT_EVERY)])
+        ck = Checkpointer(ckdir)
+        saved = ck.all_steps()
+        t0 = time.perf_counter()
+        restored, at = ck.restore((first.params, first.opt), step=TRAIN_STEPS, device="cuda")
+        restore_s = time.perf_counter() - t0
+        mine, back = (param.flatten({"0": t[0], "1": t[1]})
+                      for t in ((first.params, first.opt), restored))
+        same = all(a.dtype == back[k].dtype and torch.equal(a, back[k]) for k, a in mine.items())
+        bf16 = all(t.dtype == torch.bfloat16 for t in param.flatten(restored[0]).values())
+        ckpt_gb = sum(t.numel() * t.element_size() for t in mine.values()) / 1e9
+        print(f"[train] checkpoints {saved} in a temporary directory ({ckpt_gb:.3f} GB each); "
+              f"step {at} restored in {restore_s:.2f} s: {len(mine)} leaves equal bit for bit, "
+              f"params bf16 {bf16} {'ok' if same and bf16 else 'FAIL'}")
+        check(saved == [TRAIN_CKPT_EVERY, TRAIN_STEPS] and at == TRAIN_STEPS and same and bf16,
+              "train checkpoint: saved steps or restored values")
+        del restored, back, mine
+        n_params = _n_params(param, first.params)
+        first.params = first.opt = None  # the card holds one model's state at a time
+        torch.cuda.empty_cache()
+        second = train.main(common + ["--steps", str(TRAIN_RESUME_STEPS), "--resume"])
+        torch.cuda.synchronize()
+        counts = read_counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    n_steps = TRAIN_STEPS + TRAIN_RESUME_STEPS
+    exp = _expect(flash_attention_mma=2 * cfg.n_layers * bundle.accum * n_steps)
+    med = first.median_step_s()
+    # the second step of each run: warm, and no checkpoint write in flight (the
+    # first run's step-2 save is written while its steps 2 and 3 run)
+    quiet = [first.step_s[1], second.step_s[1]]
+    losses = first.losses + second.losses
+    ok = (second.start_step == TRAIN_STEPS and len(losses) == n_steps
+          and all(l == l and abs(l) < float("inf") for l in losses))
+    print(f"[train] {TRAIN_ARCH} {TRAIN_SHAPE} full ({n_params} parameters, bf16 params, f32 "
+          f"moments, global batch {first.samples_per_step} in {first.accum} microbatches, "
+          f"remat {cfg.remat}): {TRAIN_STEPS} steps + resume at step {second.start_step} for "
+          f"{TRAIN_RESUME_STEPS}; losses {[round(l, 4) for l in losses]}; step "
+          f"{med * 1e3:.2f} ms (median after the first; every step "
+          f"{[round(t * 1e3, 2) for t in first.step_s + second.step_s]} ms; steps 1 and "
+          f"{TRAIN_STEPS + 1}, no save in flight: {[round(t * 1e3, 2) for t in quiet]} ms), "
+          f"{first.samples_per_step / med:.1f} images/s, model "
+          f"{first.model_flops / med / 1e12:.2f} TFLOP/s ({first.model_flops:.4e} FLOP a step; "
+          f"{first.model_flops / med / PEAK_BF16:.3f} of {PEAK_BF16_NAME}); peak memory "
+          f"{peak_gb:.3f} GB; launches {_nz(counts)} (implies {_nz(exp)}) "
+          f"{'ok' if ok else 'FAIL'}")
+    check(ok, "train: resume step, or a loss that is not finite")
+    check(counts == exp, f"train launches {counts} != {exp}")
+
+    batch = pipeline.place(train.host_batch(arch, cfg, pipeline.SyntheticData(),
+                                            n_steps, bundle.abstract_inputs[2]), "cuda")
+    profile_train_step(torch, bundle, second.params, second.opt, batch,
+                       cfg.n_layers * bundle.accum, bwd_ms[TRAIN_BWD[0][0]])
+    counts16, counts32 = train_parity_phase(torch, second.params, second.opt, batch, bundle)
+    print(f"[train] phase {time.perf_counter() - t_phase:.1f} s")
+    return {"train": counts, "train_bf16_parity": counts16, "train_f32_parity": counts32}
+
 
 if __name__ == "__main__":
     sys.exit(main())

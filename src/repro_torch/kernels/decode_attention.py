@@ -80,7 +80,12 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     ``lengths``: valid cache length, an int32 tensor [B] on q's device or a
     scalar (int or 0-d tensor) broadcast to [B]; keys at or past it are
-    masked, and a length of 0 gives 0."""
+    masked, and a length of 0 gives 0. It has no backward: with grad mode on
+    and q, k or v requiring grad it raises, on any device (decoding never
+    trains; ``flash_attention`` is the differentiable path)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError("decode_attention has no backward: call it under "
+                           "torch.no_grad() or on tensors that do not require grad")
     if q.device.type == "cpu":
         return ref.decode_attention_ref(q, k, v, lengths)
     if q.device.type != "cuda":

@@ -12,11 +12,28 @@ head dim), ``kernel_for``:
 A CPU tensor goes to the plain version in ``ref.py``; a CUDA tensor launches
 a kernel or raises, never falls back. ``launches`` counts launches of both
 kernels, ``launches_mma`` those of the tensor-core kernel.
+
+Gradient: when grad mode is on and q, k, v or the bias requires grad, the
+call goes through ``_FlashAttention``, a ``torch.autograd.Function`` whose
+forward is the same kernel (or, on a CPU tensor, the same plain version)
+and whose ``backward`` is explicit PyTorch on both devices. The reference
+has no backward kernel: its models train through the jnp ``layers.sdpa``,
+which XLA differentiates outside any Pallas kernel, so plain products are
+the counterpart here. ``backward`` recomputes the f32 scores from q and k
+(bf16 operands, exact in f32, f32 products), takes the f32 softmax P, then
+``dP = dO V^T`` (an f32 product), ``dS = P * (dP - rowsum(dO * O))``,
+``dV = P^T dO``, ``dQ = dS K / sqrt(D)`` and ``dK = dS^T Q / sqrt(D)``; P and
+dS are rounded to q's dtype before the products that give dV, dQ and dK, as
+FlashAttention-2's backward does (with f32 inputs everything is f32).
+Fully masked rows, which output 0, get zero gradient. Its time is
+quadratic f32 passes over ``[B, H, Sq, Sk]``; a backward kernel is queued
+(ROADMAP queue 2).
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import torch
 
@@ -63,7 +80,91 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     ``bias`` [B, Sk] f32: additive per-key logit term (ToMe proportional
     attention, -inf on bucket pads). ``kv_len`` [B] int32: keys at or past it
-    are masked. ``causal``: bottom-right aligned causal mask."""
+    are masked. ``causal``: bottom-right aligned causal mask. Differentiable
+    in q, k, v and the bias (see the module's docstring)."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (q, k, v, bias)):
+        return _FlashAttention.apply(q, k, v, bias, kv_len, causal)
+    return _forward(q, k, v, bias, kv_len, causal)
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, bias, kv_len, causal):
+        out = _forward(q, k, v, bias, kv_len, causal)
+        ctx.save_for_backward(q, k, v, out, bias, kv_len)
+        ctx.causal = causal
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, bias, kv_len = ctx.saved_tensors
+        need_bias = bias is not None and ctx.needs_input_grad[3]
+        dq, dk, dv, dbias = backward(q, k, v, out, dout, bias=bias, kv_len=kv_len,
+                                     causal=ctx.causal, need_bias=need_bias)
+        return dq, dk, dv, dbias, None, None
+
+
+def backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
+             dout: torch.Tensor, *, bias: torch.Tensor | None = None,
+             kv_len: torch.Tensor | None = None, causal: bool = False,
+             need_bias: bool = False):
+    """(dq, dk, dv, dbias) of ``flash_attention`` at (q, k, v, bias) with
+    output ``out`` and its gradient ``dout``; ``dbias`` [B, Sk] f32 when
+    ``need_bias``, else None. Plain PyTorch on any device (the module's
+    docstring gives the arithmetic); the masks are the forward's. The
+    quadratic tensors are few passes: the scale rides on the S product,
+    ``dP - rowsum(dO * O)`` is one product with a broadcast addend, and
+    ``P * (dP - D)`` is written straight in q's dtype when no f32 dS is
+    needed (bf16 without a bias gradient)."""
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    scale = 1.0 / math.sqrt(d)
+    q3, k3, v3 = (t.reshape(b * h, -1, d) for t in (q, k, v))
+    do3 = dout.reshape(b * h, sq, d)
+    zero = torch.zeros((), dtype=torch.float32, device=q.device)
+    s = torch.baddbmm(zero, q3.float(), k3.float().transpose(1, 2), beta=0.0, alpha=scale)
+    s = s.view(b, h, sq, sk)
+    if bias is not None:
+        s.add_(bias.float().clamp_min(ref.NEG)[:, None, None, :])
+    mask = None
+    kpos = torch.arange(sk, device=q.device)
+    if kv_len is not None:
+        mask = (kpos[None, :] < kv_len.to(q.device)[:, None])[:, None, None, :]
+    if causal:
+        qpos = torch.arange(sq, device=q.device)
+        cmask = qpos[:, None] + (sk - sq) >= kpos[None, :]
+        mask = cmask if mask is None else mask & cmask
+    if mask is not None:
+        s.masked_fill_(~mask, ref.NEG)
+    p = torch.softmax(s, dim=-1)
+    if mask is not None or bias is not None:  # rows with no unmasked key output 0
+        p.mul_(s.amax(dim=-1, keepdim=True) > 0.5 * ref.NEG)
+    del s
+    p = p.view(b * h, sq, sk)
+    dv = torch.bmm(p.to(q.dtype).transpose(1, 2), do3.to(q.dtype))
+    rowsum = (dout.float() * out.float()).sum(dim=-1).reshape(b * h, sq, 1)
+    ds = torch.baddbmm(rowsum, do3.float(), v3.float().transpose(1, 2), beta=-1.0)
+    dbias = None
+    if q.dtype == torch.float32 or need_bias:
+        ds.mul_(p)
+        if need_bias:
+            dbias = ds.view(b, h, sq, sk).sum(dim=(1, 2)) * (bias.float() >= ref.NEG)
+        ds_lp = ds.to(q.dtype)
+    else:
+        ds_lp = torch.mul(ds, p, out=torch.empty_like(ds, dtype=q.dtype))
+    del ds, p
+    zero = torch.zeros((), dtype=q.dtype, device=q.device)
+    dq = torch.baddbmm(zero, ds_lp, k3, beta=0.0, alpha=scale)
+    dk = torch.baddbmm(zero, ds_lp.transpose(1, 2), q3, beta=0.0, alpha=scale)
+    return (dq.view(b, h, sq, d), dk.view(b, h, sk, d), dv.to(v.dtype).view(b, h, sk, d),
+            dbias)
+
+
+def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             bias: torch.Tensor | None, kv_len: torch.Tensor | None,
+             causal: bool) -> torch.Tensor:
+    """The kernel on a CUDA tensor, the plain version on a CPU tensor."""
     if q.device.type == "cpu":
         return ref.flash_attention_ref(q, k, v, bias=bias, kv_len=kv_len, causal=causal)
     if q.device.type != "cuda":

@@ -5,6 +5,10 @@ pad-column mask of ``tome_merge_padded`` as an optional per-member valid
 count ``nb_len``. A CPU tensor goes to the plain version in ``ref.py``; a
 CUDA tensor launches the kernel or raises, never falls back. ``launches``
 counts kernel launches.
+
+Its outputs carry no gradient, by nature: the index is an argmax, and the
+max only ranks candidate edges (the merge's weighted average, not the
+score, carries the tokens' values). The reference trains without ToMe.
 """
 from __future__ import annotations
 

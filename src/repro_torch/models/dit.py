@@ -3,8 +3,8 @@
 
 A ViT over VAE latents (img_res/8 spatial, 4 channels, patch 2 over the
 latent grid) with adaLN-zero conditioning on (timestep, class). Blocks run
-one after another (the reference scans them); ``remat`` is a training
-field, unused here.
+one after another (the reference scans them); with ``remat`` each block of
+``forward`` is recomputed in the backward (``layers.remat``).
 
 ``forward_janus`` is Janus ToMe inside one denoise step (ToMe-for-SD):
 every block attends with the proportional ``log(sizes)`` key bias (on the
@@ -155,7 +155,7 @@ def forward(params: dict, cfg: DiTConfig, latents: torch.Tensor, t: torch.Tensor
     x = _embed(params, cfg, latents)
     c = conditioning(params, cfg, t, y)
     for l in range(cfg.n_layers):
-        x = _block(layer_params(params, l), cfg, x, c)
+        x = L.remat(cfg.remat, _block, layer_params(params, l), cfg, x, c)
     return unpatchify(cfg, L.linear(params["final_proj"], _final(params, cfg, x, c)))
 
 

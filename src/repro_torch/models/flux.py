@@ -7,8 +7,8 @@ single-stream blocks (one fused stream), d_model 3072, 24 heads of 128,
 reference: the caller passes text embeddings [B, txt_len, t5_dim] and a
 pooled CLIP vector [B, clip_dim]. 2-axis RoPE over the latent grid (text
 tokens at position 0); modulation from (timestep, guidance, pooled vec).
-Blocks run one after another (the reference scans them); ``remat`` is a
-training field, unused here.
+Blocks run one after another (the reference scans them); with ``remat``
+each block is recomputed in the backward (``layers.remat``).
 
 Joint attention goes through ``layers.sdpa`` (non-causal, no bias: on the
 card the tensor-core flash kernel). It computes the reference's
@@ -201,12 +201,13 @@ def forward(params: dict, cfg: FluxConfig, latents: torch.Tensor, txt: torch.Ten
     txt_pos = torch.zeros((b, cfg.txt_len, 2), dtype=torch.long, device=dev)
 
     for l in range(cfg.n_double):
-        img, txt_e = _double_block(layer_params(params, l, "double"), cfg, img, txt_e, vec_c,
-                                   img_pos, txt_pos)
+        img, txt_e = L.remat(cfg.remat, _double_block, layer_params(params, l, "double"), cfg,
+                             img, txt_e, vec_c, img_pos, txt_pos)
     x = torch.cat([txt_e, img], dim=1)
     all_pos = torch.cat([txt_pos, img_pos], dim=1)
     for l in range(cfg.n_single):
-        x = _single_block(layer_params(params, l, "single"), cfg, x, vec_c, all_pos)
+        x = L.remat(cfg.remat, _single_block, layer_params(params, l, "single"), cfg, x, vec_c,
+                    all_pos)
     img = x[:, cfg.txt_len:]
 
     sh, sc = L.linear(params["final_ada"], F.silu(vec_c)).chunk(2, dim=-1)

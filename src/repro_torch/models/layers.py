@@ -10,10 +10,12 @@ The reference's ``chunked_sdpa`` has no counterpart: the flash kernel is it.
 """
 from __future__ import annotations
 
+import contextvars
 import math
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from repro_torch.kernels import ops
 from repro_torch.models.param import ParamSpec
@@ -272,6 +274,26 @@ def attention(p: dict, x: torch.Tensor, *, n_heads: int, n_kv: int, head_dim: in
     if return_metric:
         return y, new_cache, k.mean(dim=2)
     return y, new_cache
+
+
+def remat(enabled: bool, fn, *args):
+    """``fn(*args)``, under ``torch.utils.checkpoint`` (non-reentrant) when
+    ``enabled`` and grad mode is on: the reference's ``jax.checkpoint``
+    around a scanned block (``cfg.remat``). The block's activations are
+    dropped after its forward and recomputed in the backward, so a block
+    runs its forward, attention kernel included, twice per training step.
+    The recompute runs in a copy of the forward's context variables
+    (``ops.plain_versions``): on the card autograd recomputes on its own
+    thread, which would otherwise see the defaults and run the kernels where
+    the forward ran the plain versions. Without grad, or when no tensor
+    argument requires grad (serving), it is a plain call."""
+    if enabled and torch.is_grad_enabled() and any(
+            t.requires_grad for a in args
+            for t in (a.values() if isinstance(a, dict) else [a])
+            if isinstance(t, torch.Tensor)):
+        ctx = contextvars.copy_context()
+        return torch.utils.checkpoint.checkpoint(ctx.run, fn, *args, use_reentrant=False)
+    return fn(*args)
 
 
 # ---------------------------------------------------------------------------

@@ -35,9 +35,10 @@ from repro_torch.runtime.device import require_on, resolve_device
 
 @dataclasses.dataclass(frozen=True)
 class LMConfig:
-    """The reference's fields and defaults. ``remat``, ``attn_chunk`` and
-    ``cache_reshard_per_layer`` concern training, the chunked jnp attention
-    or meshes; the port accepts and ignores them. ``moe_impl="a2a"`` needs a
+    """The reference's fields and defaults. ``remat`` recomputes each block
+    of ``forward`` in the backward (``layers.remat``). ``attn_chunk`` and
+    ``cache_reshard_per_layer`` concern the chunked jnp attention or meshes;
+    the port accepts and ignores them. ``moe_impl="a2a"`` needs a
     mesh; without one the reference takes the gspmd path, and so does the
     port, always."""
     n_layers: int
@@ -144,7 +145,7 @@ def forward(params: dict, cfg: LMConfig, tokens: torch.Tensor):
     x = L.embed(params["embed"], tokens).to(cfg.dtype)
     aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
     for l in range(cfg.n_layers):
-        x, _, layer_aux = _block(layer_params(params, l), cfg, x)
+        x, _, layer_aux = L.remat(cfg.remat, _block, layer_params(params, l), cfg, x)
         aux = aux + layer_aux
     return _logits(params, cfg, x), aux
 

@@ -148,6 +148,36 @@ def from_jax_params(tree: Mapping, device) -> dict:
     return tree_map(lambda a: _to_tensor(a, device), tree)
 
 
+def _spec_leaves(specs) -> list[ParamSpec]:
+    if isinstance(specs, Mapping):
+        return [s for v in specs.values() for s in _spec_leaves(v)]
+    return [specs]
+
+
+def param_count(specs) -> int:
+    """Number of parameters in a spec tree."""
+    return sum(int(np.prod(s.shape)) for s in _spec_leaves(specs))
+
+
+def param_bytes(specs, dtype=None) -> int:
+    """Bytes of a spec tree's params; ``dtype`` overrides float leaves, as
+    ``init_params``'s."""
+    total = 0
+    for s in _spec_leaves(specs):
+        dt = dtype if dtype is not None and s.dtype.is_floating_point else s.dtype
+        total += int(np.prod(s.shape)) * dt.itemsize
+    return total
+
+
+def abstract_params(specs, dtype=None) -> dict:
+    """The spec tree as meta-device tensors (shapes and dtypes, no memory),
+    ``dtype`` overriding float leaves."""
+    def leaf(spec: ParamSpec) -> torch.Tensor:
+        dt = dtype if dtype is not None and spec.dtype.is_floating_point else spec.dtype
+        return torch.empty(spec.shape, dtype=dt, device="meta")
+    return tree_map(leaf, specs)
+
+
 def stack_specs(n: int, make_one: Callable[[], dict]) -> dict:
     """Stack n copies of a spec tree along a leading 'layers' axis."""
     return tree_map(lambda s: ParamSpec((n,) + s.shape, ("layers",) + s.axes,

@@ -36,7 +36,7 @@ class ViTConfig:
     in_channels: int = 3
     dtype: torch.dtype = torch.float32
     prop_attn: bool = True  # ToMe proportional attention when pruning
-    remat: bool = False  # the reference's training field; unused when serving
+    remat: bool = False  # recompute each block of ``forward`` in the backward
     fused_qkv: bool = False  # single fused QKV matmul
 
     @property
@@ -116,7 +116,7 @@ def forward(params: dict, cfg: ViTConfig, images: torch.Tensor) -> torch.Tensor:
     them): images [B, H, W, C] -> logits [B, n_classes]."""
     x = embed_tokens(params, cfg, images)
     for l in range(cfg.n_layers):
-        x, _ = _block(layer_params(params, l), cfg, x)
+        x, _ = L.remat(cfg.remat, _block, layer_params(params, l), cfg, x)
     x = L.layernorm(params["norm"], x)
     return L.linear(params["head"], x[:, 0])
 

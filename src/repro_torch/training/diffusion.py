@@ -1,6 +1,12 @@
-"""Diffusion samplers, PyTorch port of ``repro.training.diffusion``: DiT's
-DDIM-style sampler (with Janus ToMe inside every denoise forward when a
-merge schedule is given) and flux's Euler rectified-flow sampler.
+"""Diffusion training losses and samplers, PyTorch port of
+``repro.training.diffusion``: DiT's noise-prediction loss and DDIM-style
+sampler (with Janus ToMe inside every denoise forward when a merge schedule
+is given), flux's rectified-flow loss and Euler sampler.
+
+Each loss is two steps too: draw (t, noise) from a ``torch.Generator``,
+then ``dit_loss_given`` / ``flux_loss_given`` from any given draws, so that
+a test can feed the reference's own ``jax.random`` draws (the port cannot
+reproduce those bits and does not try).
 
 Each sampler is two steps: draw the initial latents from a
 ``torch.Generator`` (``initial_latents``), then run the loop
@@ -15,9 +21,6 @@ Numerics kept from the reference:
 - The step's coefficients are f32 0-d tensors, and JAX promotes a bf16
   array times an f32 0-d array to f32, so each update is computed in f32
   and cast back to the latents' dtype once (torch would keep bf16).
-
-Not ported here: ``dit_loss`` and ``flux_loss``, which belong to the
-training slice.
 """
 from __future__ import annotations
 
@@ -52,6 +55,28 @@ def initial_latents(cfg, batch: int, generator: torch.Generator, device=None) ->
                        device=device).to(cfg.dtype)
 
 
+def dit_loss_given(params: dict, cfg: dit_lib.DiTConfig, latents: torch.Tensor,
+                   y: torch.Tensor, t: torch.Tensor, eps: torch.Tensor) -> torch.Tensor:
+    """The eps-prediction loss at timesteps ``t`` [B] (f32, in [0, 999]) and
+    noise ``eps`` (latents' shape): mean squared error, f32 0-d."""
+    a = torch.cos(0.5 * math.pi * t / 1000.0)[:, None, None, None]
+    s = torch.sin(0.5 * math.pi * t / 1000.0)[:, None, None, None]
+    x_t = a * latents + s * eps
+    pred = dit_lib.forward(params, cfg, x_t, t, y)
+    return torch.mean(torch.square(pred.float() - eps.float()))
+
+
+def dit_loss(params: dict, cfg: dit_lib.DiTConfig, latents: torch.Tensor, y: torch.Tensor,
+             generator: torch.Generator) -> torch.Tensor:
+    """``dit_loss_given`` at t ~ U[0, 999) and eps ~ N(0, 1) in the
+    latents' dtype, drawn from ``generator`` (on the latents' device)."""
+    b = latents.shape[0]
+    t = torch.rand((b,), generator=generator, dtype=torch.float32, device=latents.device) * 999.0
+    eps = torch.randn(latents.shape, generator=generator, dtype=torch.float32,
+                      device=latents.device).to(latents.dtype)
+    return dit_loss_given(params, cfg, latents, y, t, eps)
+
+
 def dit_denoise(params: dict, cfg: dit_lib.DiTConfig, x: torch.Tensor, y: torch.Tensor,
                 steps: int, schedule: Sequence[int] | None = None) -> torch.Tensor:
     """``steps`` deterministic DDIM updates of latents ``x`` from t = 999 to
@@ -83,6 +108,35 @@ def dit_sample(params: dict, cfg: dit_lib.DiTConfig, generator: torch.Generator,
     Runs on ``cuda`` unless the caller passes ``device="cpu"``."""
     x = initial_latents(cfg, y.shape[0], generator, device)
     return dit_denoise(params, cfg, x, y, steps, schedule)
+
+
+def flux_loss_given(params: dict, cfg: flux_lib.FluxConfig, latents: torch.Tensor,
+                    txt: torch.Tensor, vec: torch.Tensor, t: torch.Tensor,
+                    noise: torch.Tensor) -> torch.Tensor:
+    """The rectified-flow loss at times ``t`` [B] (f32, in (0, 1)) and
+    ``noise`` (latents' shape): the velocity's mean squared error against
+    ``noise - latents``, at guidance 3.5, f32 0-d."""
+    b = latents.shape[0]
+    tb = t[:, None, None, None].to(latents.dtype)
+    x_t = (1 - tb) * latents + tb * noise
+    target = noise - latents
+    guidance = torch.full((b,), 3.5, dtype=torch.float32, device=latents.device)
+    v = flux_lib.forward(params, cfg, x_t, txt, vec, t, guidance)
+    return torch.mean(torch.square(v.float() - target.float()))
+
+
+def flux_loss(params: dict, cfg: flux_lib.FluxConfig, latents: torch.Tensor,
+              txt: torch.Tensor, vec: torch.Tensor,
+              generator: torch.Generator) -> torch.Tensor:
+    """``flux_loss_given`` at logit-normal t = sigmoid(N(0, 1)) (the BFL
+    recipe) and noise ~ N(0, 1) in the latents' dtype, drawn from
+    ``generator`` (on the latents' device)."""
+    b = latents.shape[0]
+    t = torch.sigmoid(torch.randn((b,), generator=generator, dtype=torch.float32,
+                                  device=latents.device))
+    noise = torch.randn(latents.shape, generator=generator, dtype=torch.float32,
+                        device=latents.device).to(latents.dtype)
+    return flux_loss_given(params, cfg, latents, txt, vec, t, noise)
 
 
 def flux_denoise(params: dict, cfg: flux_lib.FluxConfig, x: torch.Tensor, txt: torch.Tensor,

@@ -153,3 +153,26 @@ def test_chip_smoke_refuses_to_run_without_a_card():
                          cwd=ROOT, capture_output=True, text=True, timeout=120)
     assert res.returncode != 0
     assert '"ok": true' not in res.stdout
+
+
+def test_training_entry_points_raise_without_a_card(tmp_path):
+    """The trainer, the data placement and the checkpoint restore run on
+    ``cuda`` unless told ``device="cpu"``."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.data import pipeline
+    from repro_torch.launch import train
+
+    with pytest.raises(RuntimeError, match="cuda"):
+        train.main(["--arch", "vit-b16", "--steps", "1", "--ckpt-dir", str(tmp_path)])
+    batch = pipeline.SyntheticData().images(0, 2, 8)
+    with pytest.raises(RuntimeError, match="cuda"):
+        pipeline.place(batch)
+    assert pipeline.place(batch, "cpu")["images"].device.type == "cpu"
+    ck = Checkpointer(tmp_path / "ck")
+    tree = {"w": torch.zeros(2)}
+    ck.save(1, tree, blocking=True)
+    with pytest.raises(RuntimeError, match="cuda"):
+        ck.restore(tree)
+    assert ck.restore(tree, device="cpu")[1] == 1

@@ -14,7 +14,12 @@ the CPU) and, beside it, 3e-2 of max|plain| (at thousands of keys an output
 is ~sqrt(e/S) ~ 0.025, so 2e-2 alone would pass a wrong kernel); tome max atol 2e-5 / rtol 1e-3 and argmax
 by score at the chosen index (``tests/test_kernels.py``'s own); decode as
 flash. The flash and decode tests assert which kernel launched
-(``launches_mma``).
+(``launches_mma``). The flash backward (the kernel's forward, the explicit
+PyTorch backward) against autograd of the plain version in f32: f32 within
+1e-4 of max|g|, bf16 within 1e-2 of max|g| (P, dS and the gradients rounded
+to bf16 once; sound readings 2.7e-3 to 3.9e-3 at the train shapes, a
+backward without dS's rowsum term or with a key tile's dK and dV dropped
+0.32 and above, ``chip_smoke.py``'s ``[train]`` phase).
 """
 import pytest
 import torch
@@ -26,6 +31,7 @@ from repro_torch.kernels import tome_scores as tome_mod
 
 ATOL, RTOL = 2e-5, 1e-4
 BF16_OF_MAX = 3e-2  # bf16 flash: max|kernel - plain| <= this x max|plain|, too
+BWD_BF16_OF_MAX = 1e-2  # bf16 flash backward: max|d| <= this x max|g|
 
 
 @pytest.fixture
@@ -346,3 +352,84 @@ def test_decode_kernel_rejects_what_it_does_not_take(cuda):
     kb = k.to(torch.bfloat16)
     with pytest.raises(ValueError):
         decode_mod.decode_attention(qb, kb, kb, 3)
+
+
+def _grads_through(fn, leaves, dout):
+    return torch.autograd.grad(fn(*leaves), leaves, dout)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,h,sq,sk,d", [(2, 16, 577, 577, 64), (2, 4, 300, 130, 128),
+                                         (1, 2, 70, 200, 64)])
+@pytest.mark.parametrize("mode", ["plain", "causal", "kv_len", "bias"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_flash_backward_matches_autograd_of_plain_on_card(cuda, b, h, sq, sk, d, mode, dtype):
+    """dq/dk/dv (and dbias) through the kernel's autograd Function against
+    autograd of the plain version in f32 on the same inputs: f32 within 1e-4
+    of max|g| (full f32 products; the kernel's output enters only through
+    rowsum(dO * O)), bf16 within 1e-2 of max|g| (P, dS and the gradients
+    rounded to bf16 once, the forward's output from the bf16 kernel)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen, q, k, v, bias = _flash_case(cuda, b, h, sq, sk, d, dtype, seed=21)
+    kw = {}
+    if mode == "causal":
+        kw["causal"] = True
+    if mode == "kv_len":
+        kw["kv_len"] = torch.randint(1, sk + 1, (b,), generator=gen, device=cuda,
+                                     dtype=torch.int32)
+    leaves = [q.requires_grad_(), k.requires_grad_(), v.requires_grad_()]
+    if mode == "bias":
+        leaves.append(bias.requires_grad_())
+    dout = torch.randn((b, h, sq, d), generator=gen, device=cuda).to(dtype)
+
+    def kernel(q, k, v, bias=None):
+        return flash_mod.flash_attention(q, k, v, bias=bias, **kw)
+
+    def plain(q, k, v, bias=None):
+        return ref.flash_attention_ref(q, k, v, bias=bias, **kw)
+
+    before = flash_mod.launches
+    got = _grads_through(kernel, leaves, dout)
+    assert flash_mod.launches == before + 1  # the forward ran the kernel
+    pf = [t.detach().float().requires_grad_() for t in leaves]
+    exp = _grads_through(plain, pf, dout.float())
+    tol = 1e-4 if dtype == torch.float32 else BWD_BF16_OF_MAX
+    for g, e in zip(got, exp):
+        assert torch.isfinite(g).all()
+        torch.testing.assert_close(g.float(), e, rtol=0, atol=tol * float(e.abs().max()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_flash_backward_gqa_repeated_outside_on_card(cuda, dtype):
+    """``layers.sdpa`` with 8 q heads over 2 kv heads (repeated outside the
+    kernel), causal, D=128: the kv gradients sum over each group."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import layers
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=cuda).manual_seed(22)
+    q = torch.randn((2, 256, 8, 128), generator=gen, device=cuda).to(dtype).requires_grad_()
+    k, v = (torch.randn((2, 256, 2, 128), generator=gen, device=cuda).to(dtype).requires_grad_()
+            for _ in range(2))
+    dout = torch.randn((2, 256, 8, 128), generator=gen, device=cuda).to(dtype)
+    got = _grads_through(lambda *t: layers.sdpa(*t, causal=True), [q, k, v], dout)
+    pf = [t.detach().float().requires_grad_() for t in (q, k, v)]
+    with ops.plain_versions():
+        exp = _grads_through(lambda *t: layers.sdpa(*t, causal=True), pf, dout.float())
+    tol = 1e-4 if dtype == torch.float32 else BWD_BF16_OF_MAX
+    for g, e in zip(got, exp):
+        torch.testing.assert_close(g.float(), e, rtol=0, atol=tol * float(e.abs().max()))
+
+
+@pytest.mark.gpu
+def test_decode_attention_raises_under_grad_on_card(cuda):
+    q = torch.randn((2, 8, 64), device=cuda, dtype=torch.bfloat16, requires_grad=True)
+    kv = torch.randn((2, 64, 2, 64), device=cuda, dtype=torch.bfloat16)
+    lengths = torch.full((2,), 64, dtype=torch.int32, device=cuda)
+    before = decode_mod.launches
+    with pytest.raises(RuntimeError, match="no backward"):
+        decode_mod.decode_attention(q, kv, kv, lengths)
+    assert decode_mod.launches == before
+    with torch.no_grad():
+        _check_decode(q.detach(), kv, kv, lengths)
