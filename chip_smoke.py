@@ -241,7 +241,9 @@ def main() -> int:
     model = _vit_l(torch, torch.bfloat16)
     paths = {"vit": path_phase(torch, *model), "vit_batch": batch_phase(torch, *model)}
     trace_phase(torch, *model)
-    paths["fleet"], paths["fleet_cli"] = fleet_phase(torch, *model)
+    paths["fleet"], paths["fleet_cli"], run_a = fleet_phase(torch, *model)
+    paths["mesh_fleet"] = mesh_phase(torch, *model, run_a)
+    del run_a
     paths["vit_forward"] = vit_forward_phase(torch, *model[:2])
     del model
     paths["vit_f32_parity"], paths["vit_forward_f32_parity"] = parity_phase(torch)
@@ -250,11 +252,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     paths["lm_f32_parity"] = lm_parity_phase(torch)
     torch.cuda.empty_cache()
-    paths["moe_qwen3"], paths["moe_qwen3_cache"] = moe_phase(torch)
+    paths["moe_qwen3"], paths["moe_qwen3_cache"], paths["mesh_moe_a2a"] = moe_phase(torch)
     torch.cuda.empty_cache()
     paths["moe_granite"] = granite_phase(torch)
     torch.cuda.empty_cache()
-    paths["moe_f32_parity"], paths["moe_f32_parity_int8"] = moe_parity_phase(torch)
+    paths["moe_f32_parity"], paths["moe_f32_parity_int8"], paths["mesh_a2a_f32_parity"] = \
+        moe_parity_phase(torch)
     torch.cuda.empty_cache()
     paths["dit"], paths["dit_janus"] = dit_phase(torch)
     torch.cuda.empty_cache()
@@ -300,10 +303,13 @@ def ptxas_summary(log: str) -> list[str]:
 
 
 def zero_counts() -> None:
+    """Zero the kernels' launch counters, and ``moe_a2a``'s collectives."""
     from repro_torch.kernels import decode_attention, flash_attention, tome_scores
+    from repro_torch.models import moe_a2a
     for mod in (decode_attention, flash_attention, tome_scores):
         mod.launches = 0
     flash_attention.launches_mma = decode_attention.launches_mma = 0
+    moe_a2a.collectives = 0
 
 
 def read_counts() -> dict[str, int]:
@@ -1219,9 +1225,10 @@ def _median(xs) -> float:
     return sorted(xs)[len(xs) // 2] if xs else float("nan")
 
 
-def fleet_phase(torch, cfg, params, images) -> tuple[dict[str, int], dict[str, int]]:
+def fleet_phase(torch, cfg, params, images) -> tuple[dict[str, int], dict[str, int], dict]:
     """The serving layer on the card (see the module docstring). Returns the
-    launch counts of runs A + B + C, and those of the CLI's fleet mode."""
+    launch counts of runs A + B + C, those of the CLI's fleet mode, and run
+    A's frames, launch counts, wall s and idle share (for ``mesh_phase``)."""
     import collections
 
     from repro_torch.configs import janus_vit_l384
@@ -1371,10 +1378,103 @@ def fleet_phase(torch, cfg, params, images) -> tuple[dict[str, int], dict[str, i
         rt_t.run(images=images)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    report_profile(f"fleet run A (telemetry off), {len(fs_a.all_frames)} frames", prof,
-                   wall_ms)
+    busy_ms = report_profile(f"fleet run A (telemetry off), {len(fs_a.all_frames)} frames",
+                             prof, wall_ms)
+    run_a = {"frames": fs_a.all_frames, "counts": counts_a, "wall": wall_a,
+             "idle": 1 - busy_ms / wall_ms}
     return ({name: counts_a[name] + counts_b[name] + counts_c[name] for name in counts_a},
-            counts_cli)
+            counts_cli, run_a)
+
+
+def mesh_phase(torch, cfg, params, images, run_a: dict) -> dict[str, int]:
+    """Run A's fleet (``_fleet_spec``, bucketed, telemetry on) with
+    ``mesh_rules`` on the (1,1) host mesh (a one-rank NCCL group), once
+    under ``dp`` and once under ``tp``: the params placed as views, every
+    partition on DTensors, the kernels behind the local boundary. Each run's
+    executed frames must have run A's latencies and logits within
+    ``BATCH_BF16``, and launch exactly run A's flash_mma and tome_scores
+    (which the plans imply); before it, a warm-up run and a profiled run of
+    each (its idle share).
+    Returns the launch counts of the two counted runs."""
+    from repro_torch.configs import janus_vit_l384
+    from repro_torch.core import engine
+    from repro_torch.core.bucketing import BucketingConfig
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.serving import telemetry, workload
+    from repro_torch.sharding.rules import make_rules
+    from torch.distributed.tensor import DTensor
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    profile = serve.make_profile(janus_vit_l384.CONFIG)
+    eng_cfg = engine.EngineConfig(sla_s=0.3, execute=True, include_scheduler_overhead=False)
+    spec = _fleet_spec(workload)
+    mesh = make_host_mesh(device="cuda")
+    meter = FleetMeter(torch, cfg)
+    frames_a, counts_a = run_a["frames"], run_a["counts"]
+    n_a = len(frames_a)
+    total: dict[str, int] = {}
+    for name in ("dp", "tp"):
+        rules = make_rules(name, mesh)
+
+        def build():
+            return workload.build_runtime(spec, profile, eng_cfg, model_cfg=cfg, params=params,
+                                          bucketing=BucketingConfig(n_edges=2),
+                                          mesh_rules=rules, device="cuda")
+
+        rt = build()
+        check(isinstance(rt.params["blocks"]["attn"]["wq"], DTensor)
+              and rt.params["blocks"]["attn"]["wq"].to_local().data_ptr()
+              == params["blocks"]["attn"]["wq"].data_ptr(), f"mesh {name}: params not views")
+        # one run to fill DTensor's sharding-propagation caches (the earlier
+        # phases warmed run A's path likewise), then the profiled run
+        build().run(images=images)
+        rt_t = build()
+        with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            rt_t.run(images=images)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        busy_ms = report_profile(f"mesh {name} fleet run A (telemetry off), {n_a} frames", prof,
+                                 wall_ms)
+        tel = telemetry.Telemetry(telemetry.TelemetryConfig(stream_sample=1))
+        meter.reset()
+        zero_counts()
+        with meter:
+            t0 = time.perf_counter()
+            fs = rt.run(images=images, telemetry=tel)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        counts = read_counts()
+        frames = fs.all_frames
+        check(len(frames) == n_a, f"mesh {name}: {len(frames)} executed frames, run A {n_a}")
+        same_latency = all(f.latency_s == a.latency_s for f, a in zip(frames, frames_a))
+        err = max((f.logits.float() - a.logits.float()).abs().max().item()
+                  for f, a in zip(frames, frames_a))
+        bit_equal = all(torch.equal(f.logits, a.logits) for f, a in zip(frames, frames_a))
+        print(f"[mesh] fleet run A under {name} on {mesh}: wall {wall:.3f} s, "
+              f"{n_a / wall:.2f} frames/s (run A {run_a['wall']:.3f} s, "
+              f"{n_a / run_a['wall']:.2f}); idle share {1 - busy_ms / wall_ms:.3f} (run A "
+              f"{run_a['idle']:.3f}); launches a frame flash_mma "
+              f"{counts['flash_attention_mma'] / n_a:.2f}, tome_scores "
+              f"{counts['tome_scores'] / n_a:.2f} (run A {counts_a['flash_attention_mma'] / n_a:.2f}, "
+              f"{counts_a['tome_scores'] / n_a:.2f}); latencies "
+              f"{'equal' if same_latency else 'DIFFER'}, max|logits - run A| {err:.3e} "
+              f"({'bit-equal' if bit_equal else 'not bit-equal'}, tol {BATCH_BF16}); "
+              f"plan cache traces {rt.plan_cache.traces_by_kind}")
+        check(same_latency, f"mesh {name}: latencies differ from run A's")
+        check(all(torch.allclose(f.logits.float(), a.logits.float(), **BATCH_BF16)
+                  for f, a in zip(frames, frames_a)), f"mesh {name}: logits differ from run A's")
+        check(counts["flash_attention_mma"] == counts_a["flash_attention_mma"]
+              == meter.implied["flash"] and counts["tome_scores"] == counts_a["tome_scores"]
+              == meter.implied["tome"], f"mesh {name}: launches differ from run A's")
+        check(counts["flash_attention"] == counts["decode_attention"]
+              == counts["decode_attention_mma"] == 0,
+              f"mesh {name} launched a CUDA-core flash or a decode kernel")
+        for key, n in counts.items():
+            total[key] = total.get(key, 0) + n
+    return total
 
 
 # ---------------------------------------------------------------------- parity
@@ -1505,9 +1605,11 @@ def serve_phase(torch, tag: str, name: str, cfg, params, steps: int) -> tuple[di
     greedy decode steps, each closed by a synchronize; the launch counters
     are zeroed just before and read just after, and must be exactly one
     tensor-core flash launch a layer and one tensor-core decode launch a
-    layer and step. Returns (counts, state for a trace: the last token and
-    the cache)."""
+    layer and step. Under sharding rules the logits come back as DTensors and
+    are read as global tensors. Returns (counts, state: the last token, the
+    cache, the prompt, the greedy tokens [B, steps + 1] and the timings)."""
     from repro_torch.models import lm, param
+    from repro_torch.sharding.rules import to_global
 
     weights_gb = _weights_gb(param, params)
     tokens = torch.randint(0, cfg.vocab, (LM_BATCH, LM_PROMPT), dtype=torch.int32, device="cuda",
@@ -1525,17 +1627,20 @@ def serve_phase(torch, tag: str, name: str, cfg, params, steps: int) -> tuple[di
     zero_counts()
     t0 = time.perf_counter()
     logits, cache = lm.prefill(params, cfg, tokens, max_len=LM_CAPACITY)
+    logits = to_global(logits)
     torch.cuda.synchronize()
     prefill_ms = (time.perf_counter() - t0) * 1e3
     tok = logits[:, -1].argmax(-1, keepdim=True).int()
-    finite, step_ms = [torch.isfinite(logits).all()], []
+    finite, step_ms, generated = [torch.isfinite(logits).all()], [], [tok]
     for i in range(steps):
         t0 = time.perf_counter()
         logits, cache = lm.decode_step(params, cfg, tok, cache, LM_PROMPT + i)
+        logits = to_global(logits)
         tok = logits[:, -1].argmax(-1, keepdim=True).int()
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
         finite.append(torch.isfinite(logits).all())
+        generated.append(tok)
     counts = read_counts()
 
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -1559,7 +1664,10 @@ def serve_phase(torch, tag: str, name: str, cfg, params, steps: int) -> tuple[di
     check(bool(torch.stack(finite).all()), f"non-finite {name} logits")
     check(all(t.dtype == cfg.cache_dtype for t in buffers), f"{name} cache dtype")
     check(counts == exp, f"{name} launch counts")
-    return counts, {"tok": tok, "cache": cache, "tokens": tokens, "steps": steps}
+    return counts, {"tok": tok, "cache": cache, "tokens": tokens, "steps": steps,
+                    "generated": torch.cat(generated, dim=1), "prefill_ms": prefill_ms,
+                    "step_ms": ordered[len(ordered) // 2],
+                    "tok_s": LM_BATCH * steps / sum(step_ms) * 1e3, "peak_gb": peak_gb}
 
 
 def trace_serving(torch, tag: str, cfg, params, state: dict, moe_split: bool = False) -> None:
@@ -1588,11 +1696,12 @@ def lm_phase(torch) -> dict[str, int]:
     return counts
 
 
-def moe_phase(torch) -> tuple[dict[str, int], dict[str, int]]:
+def moe_phase(torch) -> tuple[dict[str, int], dict[str, int], dict[str, int]]:
     """qwen3-moe-30b-a3b bf16 at all 48 layers and full widths (61 GB of
     weights on the card): ``serve_phase`` with 64 steps on the stacked bf16
     cache, traced, then (``moe_cache``) the same weights on the per-layer
-    int8 cache (scale 0.05) for 16 steps."""
+    int8 cache (scale 0.05) for 16 steps, then (``mesh_moe_phase``) the same
+    weights through ``moe_a2a`` on the (1,1) mesh."""
     from repro_torch.configs import qwen3_moe_30b_a3b
 
     t0 = time.perf_counter()
@@ -1601,13 +1710,136 @@ def moe_phase(torch) -> tuple[dict[str, int], dict[str, int]]:
     print(f"[moe] qwen3-moe-30b-a3b init on the card: {time.perf_counter() - t0:.1f} s, "
           f"max_memory_allocated {torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
     counts, state = serve_phase(torch, "moe", "qwen3-moe-30b-a3b", cfg, params, LM_STEPS)
+    gspmd = {k: state[k] for k in ("prefill_ms", "step_ms", "tok_s", "peak_gb")}
     trace_serving(torch, "moe qwen3", cfg, params, state, moe_split=True)
     torch.cuda.empty_cache()
     cache_cfg = dataclasses.replace(cfg, cache_layout="per_layer", cache_quant_scale=0.05)
     cache_counts, state = serve_phase(torch, "moe_cache", "qwen3-moe-30b-a3b", cache_cfg, params,
                                       16)
     check(len(state["cache"]) == cfg.n_layers, "per-layer cache: one buffer pair a layer")
-    return counts, cache_counts
+    del state
+    torch.cuda.empty_cache()
+    return counts, cache_counts, mesh_moe_phase(torch, cfg, params, gspmd)
+
+
+A2A_COLLECTIVES = 6  # a layer: 3 all-to-alls, 1 all-gather, 1 all-reduce per mesh axis (2)
+
+
+def mesh_moe_phase(torch, cfg, params, gspmd: dict) -> dict[str, int]:
+    """qwen3-moe-30b-a3b bf16, the ``[moe]`` weights (no second init), with
+    ``moe_impl="a2a"`` under ``ep_tp`` rules on the (1,1) host mesh (a
+    one-rank NCCL group): the params placed as views (memory before and
+    after), ``serve_phase``'s traffic (B=8 x 1024 + 64 greedy steps on the
+    stacked cache: flash_mma at the prefill, decode_mma at each step, one
+    ``moe_a2a.apply`` a layer), its collectives counted (``moe_a2a``'s
+    counter, and the profiler's NCCL ranges over one decode step), then the
+    same path under ``plain_versions()``, whose routes and greedy tokens are
+    printed beside the served run's: in bf16 a route flips wherever one
+    rounding step of a router logit crosses the top-k boundary (the first
+    difference is printed with the plain run's logit gap in bf16 steps), so
+    the kernels are judged against the plain versions on this path in f32,
+    by ``moe_parity_phase``'s a2a run. Returns the served run's launch
+    counts."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import lm, moe_a2a
+    from repro_torch.sharding.rules import make_rules, place_params, to_global, use_rules
+
+    acfg = dataclasses.replace(cfg, moe_impl="a2a")
+    rules = make_rules("ep_tp", make_host_mesh(device="cuda"))
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    placed = place_params(params, lm.specs(cfg), rules)
+    after = torch.cuda.memory_allocated()
+    print(f"[mesh] qwen3-moe-30b-a3b a2a, ep_tp on {rules.mesh}: memory_allocated "
+          f"{before / 1e9:.3f} GB before placing the weights, {after / 1e9:.3f} GB after "
+          f"(views, no copy)")
+    check(after == before, "placing the qwen3 weights allocated memory")
+
+    route, routes, gaps = moe_a2a.route, [], []
+
+    def recording_route(logits):
+        probs, sorted_probs, order = route(logits)
+        k = acfg.moe.top_k
+        routes.append(order[:, :k])
+        if gaps is not None:  # the plain run: the k-th - (k+1)-th logit, in bf16 steps
+            top = logits.gather(1, order[:, k - 1:k + 1])
+            gaps.append((top[:, 0] - top[:, 1]) / 2.0 ** (torch.floor(torch.log2(
+                top[:, 0].abs())) - 7))
+        return probs, sorted_probs, order
+
+    n_calls = acfg.n_layers * (1 + LM_STEPS)
+    moe_a2a.route = recording_route
+    gaps = None
+    try:
+        with use_rules(rules):
+            counts, state = serve_phase(torch, "mesh", "qwen3-moe-30b-a3b a2a", acfg, placed,
+                                        LM_STEPS)
+            collectives = moe_a2a.collectives
+            routes_k = routes[-n_calls:]  # the served run's; serve_phase warms up first
+            index = LM_PROMPT + LM_STEPS
+            tok, cache = state.pop("tok"), state.pop("cache")
+            prof, busy_ms, wall_ms = profile_once(
+                torch, f"mesh qwen3 a2a decode step B={LM_BATCH} at cache length {index + 1}",
+                lambda: lm.decode_step(placed, acfg, tok, cache, index))
+            del cache
+            profile_once(torch, f"mesh qwen3 a2a prefill B={LM_BATCH} x {LM_PROMPT} tokens",
+                         lambda: lm.prefill(placed, acfg, state["tokens"], max_len=LM_CAPACITY))
+            routes.clear()
+            gaps = []
+            with ops.plain_versions():
+                logits, cache = lm.prefill(placed, acfg, state["tokens"], max_len=LM_CAPACITY)
+                tok = to_global(logits)[:, -1].argmax(-1, keepdim=True).int()
+                plain = [tok]
+                for i in range(LM_STEPS):
+                    logits, cache = lm.decode_step(placed, acfg, tok, cache, LM_PROMPT + i)
+                    tok = to_global(logits)[:, -1].argmax(-1, keepdim=True).int()
+                    plain.append(tok)
+            del cache, logits
+            routes_p = list(routes)
+    finally:
+        moe_a2a.route = route
+    torch.cuda.synchronize()
+
+    implied = n_calls * A2A_COLLECTIVES
+    from torch.autograd import DeviceType
+    nccl: dict[str, int] = {}
+    for ev in prof.events():
+        if ev.name.split(":")[0] in ("nccl", "gloo") and ev.device_type == DeviceType.CPU:
+            nccl[ev.name] = nccl.get(ev.name, 0) + 1
+    step_a2a = sum(n for key, n in nccl.items() if key.endswith(":all_to_all"))
+    print(f"[mesh] a2a collectives: {collectives} in the prefill and {LM_STEPS} steps "
+          f"(the code implies {acfg.n_layers} layers x {A2A_COLLECTIVES} x {1 + LM_STEPS} "
+          f"calls = {implied}); collective ranges the profiler saw in one decode step: {nccl} "
+          f"(all-to-all implied {3 * acfg.n_layers})")
+    check(collectives == implied, "a2a collective count")
+    check(step_a2a == 3 * acfg.n_layers, "the profiler's NCCL all-to-alls in a decode step")
+
+    check(len(routes_k) == len(routes_p) == len(gaps) == n_calls, "a2a routes recorded")
+    got, want = state["generated"], torch.cat(plain, dim=1)
+    same = int((got == want).all(dim=0).sum())
+    first = next((call for call, (ek, ep) in enumerate(zip(routes_k, routes_p))
+                  if not torch.equal(ek, ep)), None)
+    if first is None:
+        print(f"[mesh] bf16 kernels vs plain: routes identical, greedy tokens identical at "
+              f"{same}/{got.shape[1]} positions")
+    else:
+        differ = (routes_k[first] != routes_p[first]).any(dim=-1)
+        where = "prefill" if first < acfg.n_layers else f"step {first // acfg.n_layers - 1}"
+        print(f"[mesh] bf16 kernels vs plain (not judged in bf16; the f32 a2a parity "
+              f"judges): first route difference at the {where}, layer "
+              f"{first % acfg.n_layers}, {int(differ.sum())} of {differ.numel()} tokens, the "
+              f"plain run's k-th vs (k+1)-th router logit gap there at most "
+              f"{gaps[first][differ].max().item():.2f} bf16 steps; greedy tokens identical at "
+              f"{same}/{got.shape[1]} positions")
+    print(f"[mesh] qwen3 a2a vs [moe] gspmd ({torch.cuda.get_device_name(0)}, same weights "
+          f"and prompts): prefill "
+          f"{state['prefill_ms']:.2f} vs {gspmd['prefill_ms']:.2f} ms, step median "
+          f"{state['step_ms']:.2f} vs {gspmd['step_ms']:.2f} ms, {state['tok_s']:.1f} vs "
+          f"{gspmd['tok_s']:.1f} generated tokens/s, peak {state['peak_gb']:.3f} vs "
+          f"{gspmd['peak_gb']:.3f} GB; decode step idle share {1 - busy_ms / wall_ms:.3f}")
+    check(state["peak_gb"] < 80.0, "a2a serving peak memory")
+    return counts
 
 
 def granite_phase(torch) -> dict[str, int]:
@@ -1673,12 +1905,16 @@ NEAR_TIE = 1e-5   # a route flip where the plain run's top-k margin is below thi
 INT8_NEAR = 1e-3  # an int8 flip must lie this close to a rounding boundary (|x/scale|)
 
 
-def moe_parity_phase(torch) -> tuple[dict[str, int], dict[str, int]]:
+def moe_parity_phase(torch) -> tuple[dict[str, int], dict[str, int], dict[str, int]]:
     """qwen3-moe-30b-a3b in f32 on the card, cut to 4 of its 48 layers at
     full widths (12.5 GB; all 48 in f32 would take 122 GB), through the
     kernels against the plain versions: prefill of 2 x 256 tokens, then 8
-    teacher-forced steps, once on the stacked f32 cache and once on the
-    per-layer int8 cache (scale 0.05).
+    teacher-forced steps, once on the stacked f32 cache, once on the
+    per-layer int8 cache (scale 0.05), and once (``[mesh]``) with
+    ``moe_impl="a2a"`` under ``ep_tp`` rules on the (1,1) host mesh (the
+    params placed as views; routes recorded in ``moe_a2a.route``), where
+    with identical routes each step's greedy token (the argmax of its
+    logits) must also be the plain run's.
 
     Routes first: the top-k experts of every token at every layer and call.
     A route that differs where the plain run's margin between the k-th and
@@ -1691,15 +1927,19 @@ def moe_parity_phase(torch) -> tuple[dict[str, int], dict[str, int]]:
     the first such flip are downstream of it and not judged (counted)."""
     from repro_torch.configs import qwen3_moe_30b_a3b
     from repro_torch.kernels import ops
-    from repro_torch.models import layers, lm, moe, param
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import layers, lm, moe, moe_a2a, param
+    from repro_torch.sharding.rules import make_rules, place_params, to_global, use_rules
 
     cfg, params = _lm(torch, qwen3_moe_30b_a3b, torch.float32, n_layers=4)
+    rules = make_rules("ep_tp", make_host_mesh(device="cuda"))
+    placed = place_params(params, lm.specs(cfg), rules)
     weights_gb = sum(t.numel() * t.element_size()
                      for t in param.flatten(params).values()) / 1e9
     prompt, steps, n_layers = 256, 8, cfg.n_layers
     tokens = torch.randint(0, cfg.vocab, (2, prompt + steps), dtype=torch.int32, device="cuda",
                            generator=torch.Generator(device="cuda").manual_seed(2))
-    route, quantize = moe.route, layers._quantize
+    route, quantize, a2a_route = moe.route, layers._quantize, moe_a2a.route
 
     def run(c):
         """Logits of the prefill and of each step, the cache, the routes
@@ -1720,16 +1960,28 @@ def moe_parity_phase(torch) -> tuple[dict[str, int], dict[str, int]]:
                 unrounded.append(t.float() / scale)
             return quantize(t, scale, dtype)
 
+        def recording_a2a_route(logits):
+            probs, sorted_probs, order = a2a_route(logits)
+            k = c.moe.top_k
+            routes.append((order[:, :k], sorted_probs[:, k - 1] - sorted_probs[:, k]))
+            return probs, sorted_probs, order
+
+        a2a = c.moe_impl == "a2a"
         moe.route, layers._quantize = recording_route, recording_quantize
+        moe_a2a.route = recording_a2a_route
         try:
-            logits, cache = lm.prefill(params, c, tokens[:, :prompt], max_len=prompt + steps)
-            out = [logits]
-            for i in range(steps):
-                logits, cache = lm.decode_step(params, c, tokens[:, prompt + i:prompt + i + 1],
-                                               cache, prompt + i)
-                out.append(logits)
+            with use_rules(rules if a2a else None):
+                p = placed if a2a else params
+                logits, cache = lm.prefill(p, c, tokens[:, :prompt], max_len=prompt + steps)
+                out = [to_global(logits)]
+                for i in range(steps):
+                    logits, cache = lm.decode_step(p, c, tokens[:, prompt + i:prompt + i + 1],
+                                                   cache, prompt + i)
+                    out.append(to_global(logits))
         finally:
-            moe.route, layers._quantize = route, quantize
+            moe.route, layers._quantize, moe_a2a.route = route, quantize, a2a_route
+        if isinstance(cache, dict):
+            cache = {n: to_global(t) for n, t in cache.items()}
         return out, cache, routes, unrounded
 
     def stacked(cache):
@@ -1758,7 +2010,8 @@ def moe_parity_phase(torch) -> tuple[dict[str, int], dict[str, int]]:
     all_counts = []
     for label, c in (("stacked f32 cache", cfg),
                      ("per-layer int8 cache", dataclasses.replace(
-                         cfg, cache_layout="per_layer", cache_quant_scale=0.05))):
+                         cfg, cache_layout="per_layer", cache_quant_scale=0.05)),
+                     ("a2a, ep_tp on the (1,1) mesh", dataclasses.replace(cfg, moe_impl="a2a"))):
         t0 = time.perf_counter()
         zero_counts()
         lk, ck, rk, uk = run(c)
@@ -1811,6 +2064,10 @@ def moe_parity_phase(torch) -> tuple[dict[str, int], dict[str, int]]:
         else:
             logits_ok = all(torch.allclose(a, b, **PARITY_F32) for a, b in zip(lk, lp))
             verdict = f"routes identical ({n_routes} token-layers)"
+            if c.moe_impl == "a2a":
+                greedy = [torch.equal(a.argmax(-1), b.argmax(-1)) for a, b in zip(lk, lp)]
+                logits_ok = logits_ok and all(greedy)
+                verdict += f", greedy tokens identical at {sum(greedy)}/{len(greedy)} calls"
         ok = logits_ok and cache_ok
         print(f"[moe_parity] {label}: kernels vs plain: {verdict}; max|dlogits| prefill "
               f"{errs[0]:.3e}, steps {' '.join(f'{e:.2e}' for e in errs[1:])}; {cache_note}; "
@@ -1824,7 +2081,7 @@ def moe_parity_phase(torch) -> tuple[dict[str, int], dict[str, int]]:
         check(counts == exp, f"qwen3 f32 MoE launch counts ({label})")
         all_counts.append(counts)
         del lk, ck, lp, cp, rk, rp, uk
-    return all_counts[0], all_counts[1]
+    return all_counts[0], all_counts[1], all_counts[2]
 
 
 def judged_entries(differ_k, differ_v, prompt: int):

@@ -27,7 +27,7 @@ leaf as its ``uint16`` bits, integers, without an error.
 
 ``restore`` places every leaf on one ``device`` (``cuda`` unless the
 caller passes ``device="cpu"``); the reference's elastic restore onto a mesh
-waits for sharding (ROADMAP queue 1 item 3).
+waits for the training mesh, the next slice of the port (ROADMAP.md queue 1).
 """
 from __future__ import annotations
 

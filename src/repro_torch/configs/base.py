@@ -4,7 +4,7 @@ reference module imports no JAX, but the port imports nothing of it).
 Every architecture is an ``ArchSpec`` with its published full config, a
 reduced smoke config of the same family, its shape set, and the names of
 its sharding profiles for training and serving (the profiles themselves
-come with the mesh slice)."""
+are ``sharding.rules.PROFILES``)."""
 from __future__ import annotations
 
 import dataclasses

@@ -15,8 +15,10 @@ the Hopper kernels on a card.
 PyTorch runs eagerly: it is a memo of partition callables, and ``traces``
 counts first builds of a geometry. ``run_cloud_batch`` stacks same-geometry
 cloud partitions of a micro-batch into one forward, optionally padding them
-to bucket edges (``core.bucketing``). ``shard_params`` and ``rules=`` wait
-for the mesh slice.
+to bucket edges (``core.bucketing``). ``CompiledPlanCache(rules=)`` runs
+every partition over the rules' mesh (DTensor params from
+``shard_params``, inputs placed on the batch axes, outputs back as plain
+global tensors); with ``rules=None`` the partitions are the plain ones.
 """
 from __future__ import annotations
 
@@ -35,6 +37,7 @@ from repro_torch.core.scheduler import Decision, ModelProfile
 from repro_torch.models import vit as vit_lib
 from repro_torch.models.param import flatten
 from repro_torch.runtime.device import require_on, resolve_device
+from repro_torch.sharding import rules as rules_lib
 
 
 @dataclasses.dataclass(frozen=True)
@@ -209,10 +212,20 @@ class CompiledPlanCache:
     ``misses`` count lookups, ``traces`` (and ``traces_by_kind`` per
     partition program) count first builds of a geometry. PyTorch runs
     eagerly, so a build is a closure over its geometry, not a compiled
-    program; the counters keep the reference's retrace bounds testable."""
+    program; the counters keep the reference's retrace bounds testable.
 
-    def __init__(self):
+    ``rules`` (optional ``sharding.rules.Rules``) makes every partition
+    mesh-aware: it runs under ``use_rules``, so the ``constrain`` calls of
+    ``vit.run_blocks`` / ``run_blocks_padded`` redistribute its DTensor
+    activations (data-parallel over the stacked fleet batch, tensor-parallel
+    over heads/MLP when the profile maps them). Its inputs are placed on the
+    batch axes and its outputs come back as plain global tensors, as a
+    jitted program's global arrays. With ``rules=None`` the partitions are
+    unchanged: plain tensors, no DTensor."""
+
+    def __init__(self, rules=None):
         self._fns: dict[tuple, Callable] = {}
+        self.rules = rules
         self.hits = 0
         self.misses = 0
         self.traces = 0
@@ -224,10 +237,26 @@ class CompiledPlanCache:
             self.misses += 1
             self.traces += 1
             self.traces_by_kind[kind] = self.traces_by_kind.get(kind, 0) + 1
-            fn = self._fns[key] = build()
+            fn = self._fns[key] = self._on_mesh(build())
         else:
             self.hits += 1
         return fn
+
+    def _on_mesh(self, fn: Callable) -> Callable:
+        """``fn(params, *inputs)`` under the rules: inputs placed on the
+        batch axes, outputs back as plain global tensors."""
+        rules = self.rules
+        if rules is None:
+            return fn
+
+        def run(params, *inputs):
+            with rules_lib.use_rules(rules):
+                out = fn(params, *(rules.constrain(t, ("batch",) + (None,) * (t.dim() - 1))
+                                   for t in inputs))
+            if isinstance(out, tuple):
+                return tuple(rules_lib.to_global(t) for t in out)
+            return rules_lib.to_global(out)
+        return run
 
     @staticmethod
     def _shape_key(t: torch.Tensor) -> tuple:
@@ -326,6 +355,13 @@ def run_cloud_batch(cache: CompiledPlanCache, cfg: vit_lib.ViTConfig,
             b = m.x.shape[0]
             m.logits = logits[off:off + b]
             off += b
+
+
+def shard_params(params: dict, cfg: vit_lib.ViTConfig, rules) -> dict:
+    """Place a param tree per the rules' mesh before serving (dp replicates,
+    tp shards heads/MLP/vocab): each rank's slice as a view, no copy
+    (``rules.place_params``)."""
+    return rules_lib.place_params(params, vit_lib.specs(cfg), rules)
 
 
 # ---------------------------------------------------------------------------

@@ -13,6 +13,12 @@ one destination in source order with the array's dtype rounding after each
 add (``sizes`` carries the activation dtype, so under bf16 merged sizes above
 256 round), which ``_scatter_add`` reproduces deterministically on any device
 (CUDA ``index_add_`` sums colliding indices in no fixed order).
+
+Under sharding rules (DTensor activations), ``tome_merge`` and
+``tome_merge_padded`` run behind the local boundary ``rules.run_local``:
+the matching and merge sort and scatter within each batch row, so they run
+on each rank's rows, and only the batch dim may be sharded (the
+reference's ``constrain(x, ("batch", None, None))`` around merge layers).
 """
 from __future__ import annotations
 
@@ -21,6 +27,10 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels import ops
+from repro_torch.sharding.rules import run_local
+
+_ROWS = (("batch", None, None), ("batch", None, None), ("batch", None))  # x, metric, sizes
+_OUT = [("batch", None, None), ("batch", None)]                          # x', sizes'
 
 
 class MergeIndices(NamedTuple):
@@ -120,8 +130,11 @@ def tome_merge(x: torch.Tensor, metric: torch.Tensor, sizes: torch.Tensor, r: in
     """Full ToMe step: match on ``metric``, merge ``x``. Returns (x', sizes')."""
     if r <= 0:
         return x, sizes
-    idx = bipartite_soft_matching(metric, r, protect_first=protect_first)
-    return merge_tokens(x, sizes, idx)
+
+    def merge(x, metric, sizes):
+        return merge_tokens(x, sizes, bipartite_soft_matching(metric, r,
+                                                              protect_first=protect_first))
+    return run_local("tome_merge", merge, (x, metric, sizes), _ROWS, _OUT)
 
 
 def padded_matching(metric: torch.Tensor, sizes: torch.Tensor, r: int, *,
@@ -155,7 +168,10 @@ def tome_merge_padded(x: torch.Tensor, metric: torch.Tensor, sizes: torch.Tensor
     the ``log(0) = -inf`` size bias (the caller's job)."""
     if r <= 0:
         return x, sizes
-    idx = padded_matching(metric, sizes, r, protect_first=protect_first)
-    x, sizes = merge_tokens(x, sizes, idx)
-    tail = torch.argsort((sizes <= 0.0).to(torch.int32), dim=-1, stable=True)
-    return _gather_rows(x, tail), torch.gather(sizes, 1, tail)
+
+    def merge(x, metric, sizes):
+        idx = padded_matching(metric, sizes, r, protect_first=protect_first)
+        x, sizes = merge_tokens(x, sizes, idx)
+        tail = torch.argsort((sizes <= 0.0).to(torch.int32), dim=-1, stable=True)
+        return _gather_rows(x, tail), torch.gather(sizes, 1, tail)
+    return run_local("tome_merge_padded", merge, (x, metric, sizes), _ROWS, _OUT)

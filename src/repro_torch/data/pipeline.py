@@ -5,7 +5,7 @@ images, LM token streams, diffusion latents, flux's text embeddings): the
 same numpy generator, ``default_rng((seed << 32) ^ step)``, so the port's
 batches equal the reference's bit for bit. ``place`` copies a host batch to
 one device. The reference's multi-host branch (each host uploads its shard)
-waits for sharding (ROADMAP queue 1 item 3).
+waits for the training mesh, the next slice of the port (ROADMAP.md queue 1).
 
 The generator is stateless in the step index, so a resumed run continues
 the stream exactly.

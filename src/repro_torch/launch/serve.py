@@ -21,12 +21,22 @@ printed report:
   python -m repro_torch.launch.serve --streams 4 --frames 5 --execute \
       --bucket-edges 2            # on a card: cloud batches on the kernels
 
-``--mesh`` / ``--mesh-model`` (sharded execution) are not ported yet and
-raise ``NotImplementedError``.
+With ``--execute``, ``--mesh dp|tp`` shards the partitions over the host
+mesh (``launch.mesh.make_host_mesh``, ``--mesh-model`` ranks on its
+"model" axis): one process on ``--device``, or one process a rank under
+``torchrun``, where rank 0 alone prints:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --streams 2 --execute \
+      --mesh dp --device cpu
+  PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.serve \
+      --streams 2 --execute --device cpu --mesh tp --mesh-model 2
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
+import os
 import time
 
 import torch
@@ -34,6 +44,7 @@ import torch
 from repro_torch.configs import janus_vit_l384
 from repro_torch.core import bandwidth, bucketing as bucketing_lib, engine, planner, \
     profiler, scheduler
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import param as param_lib
 from repro_torch.models import vit as vit_lib
 from repro_torch.runtime.device import resolve_device
@@ -42,6 +53,7 @@ from repro_torch.serving import fleet as fleet_lib
 from repro_torch.serving import sla as sla_lib
 from repro_torch.serving import telemetry as telemetry_lib
 from repro_torch.serving import workload as workload_lib
+from repro_torch.sharding.rules import make_rules
 
 
 def make_profile(cfg: vit_lib.ViTConfig) -> scheduler.ModelProfile:
@@ -144,12 +156,16 @@ def run_fleet(args, profile, eng_cfg, model_cfg=None, params=None, images=None,
               device=None):
     """Fleet mode: a workload scenario through one shared cloud tier."""
     spec = spec_from_args(args)
-    bucketing = None
+    bucketing = mesh_rules = None
     if args.execute and args.bucket_edges > 0:
         bucketing = bucketing_lib.BucketingConfig(n_edges=args.bucket_edges)
+    if args.execute and args.mesh:
+        mesh_rules = make_rules(args.mesh, make_host_mesh(model=args.mesh_model,
+                                                          device=device))
     rt = workload_lib.build_runtime(spec, profile, eng_cfg,
                                     model_cfg=model_cfg, params=params,
-                                    bucketing=bucketing, device=device)
+                                    bucketing=bucketing, mesh_rules=mesh_rules,
+                                    device=device)
     cloud = rt.cloud
     tel = None
     if args.telemetry_sample > 0:
@@ -202,8 +218,10 @@ def run_fleet(args, profile, eng_cfg, model_cfg=None, params=None, images=None,
         by_kind = " ".join(f"{k}={v}" for k, v in
                            sorted(pc.traces_by_kind.items())) or "none"
         buckets = f" bucket_cells={rt.buckets.n_cells}" if rt.buckets else ""
+        mesh = f" mesh={tuple(rt.mesh_rules.shape.items())}" \
+            if rt.mesh_rules is not None else ""
         print(f"[fleet execute] plan_cache hits={pc.hits} misses={pc.misses} "
-              f"traces={pc.traces} ({by_kind}){buckets}")
+              f"traces={pc.traces} ({by_kind}){buckets}{mesh}")
     if spec.autoscale is not None:
         print(f"[fleet autoscale] capacity peak={fs.peak_capacity} "
               f"final={fs.final_capacity} "
@@ -274,9 +292,12 @@ def main(argv=None):
                          "geometries; see docs/execution.md)")
     ap.add_argument("--mesh", default="",
                     choices=["", "dp", "tp"],
-                    help="not ported yet (sharding): any value raises")
+                    help="with --execute: shard the partitions over the host "
+                         "mesh (dp = data-parallel fleet batch, tp = + "
+                         "tensor-parallel heads/MLP); one rank a process, "
+                         "several under torchrun")
     ap.add_argument("--mesh-model", type=int, default=1,
-                    help="not ported yet (sharding): any value but 1 raises")
+                    help="model-axis size of the --mesh host mesh")
     ap.add_argument("--streams", type=int, default=0,
                     help="fleet mode: N concurrent client streams through a "
                          "shared cloud tier (0 = classic single-stream mode)")
@@ -402,11 +423,13 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="torch device of the engines (cuda, or cpu)")
     args = ap.parse_args(argv)
-    if args.mesh or args.mesh_model != 1:
-        raise NotImplementedError(
-            "--mesh/--mesh-model: mesh-sharded execution is not ported yet "
-            "(ROADMAP.md queue 1 item 3, sharding)")
+    if int(os.environ.get("RANK", "0")) != 0:  # under torchrun, rank 0 alone prints
+        with contextlib.redirect_stdout(io.StringIO()):
+            return _serve(args, ap)
+    return _serve(args, ap)
 
+
+def _serve(args, ap) -> None:
     if args.streams <= 0 and not args.workload:
         # classic single-stream mode: fail loudly instead of silently
         # ignoring fleet-only workload flags

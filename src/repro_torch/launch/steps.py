@@ -12,16 +12,23 @@ f32 in order and divided by ``accum``, then AdamW (``optim.adamw``, in
 place). Params enter as plain tensors; the step differentiates detached
 aliases of them, so the caller's tensors never require grad.
 
-Not ported: ``in_shardings``, ``out_shardings``, ``donate_argnums`` and
-``lower``/``jitted`` (sharding and ahead-of-time compilation, ROADMAP queue
-1 items 3 and 7): ``mesh`` must be None, anything else raises. Nor are
-``build_bundle``'s ``config_patch``, ``janus_alpha`` and ``optimizer``,
-whose only caller is the hill-climb tool (item 7).
+With a ``mesh`` (a ``DeviceMesh``), a serving bundle (serve, prefill,
+decode, gen) builds its rules from the architecture's ``serve_profile``:
+``in_shardings`` / ``out_shardings`` are trees of ``spec_for`` specs
+matching the step's arguments and results, ``place_inputs`` places
+concrete arguments by them (each rank's slice as a view), and the step runs
+under ``use_rules``. A train shape with a mesh raises: the sharded train
+step comes with the training mesh, the next slice of the port (ROADMAP.md
+queue 1).
+Not ported: ``donate_argnums`` and ``lower``/``jitted`` (ahead-of-time
+compilation, item 7), nor ``build_bundle``'s ``config_patch``,
+``janus_alpha`` and ``optimizer``, whose only caller is the hill-climb tool
+(item 7).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Any, Callable, Mapping
 
 import torch
 
@@ -35,6 +42,7 @@ from repro_torch.models import resnet as resnet_lib
 from repro_torch.models import swin as swin_lib
 from repro_torch.models import vit as vit_lib
 from repro_torch.optim import adamw
+from repro_torch.sharding import rules as rules_lib
 from repro_torch.training import diffusion
 
 
@@ -51,6 +59,30 @@ class StepBundle:
     accum: int = 1           # microbatches of a train step
     notes: str = ""
     loss_fn: Callable | None = None  # a train step's loss(params, batch, step)
+    in_shardings: Any = None     # spec trees of the arguments (with a mesh)
+    out_shardings: Any = None    # spec trees of the results (with a mesh)
+    rules: Any = None            # the serve profile's Rules (with a mesh)
+
+
+def place_inputs(bundle: StepBundle, *args) -> tuple:
+    """``args`` placed by ``bundle.in_shardings`` on its mesh: every tensor
+    leaf as a DTensor holding this rank's slice (a view, no copy); leaves
+    whose spec is None (the decode index) pass as they are. Without a mesh
+    the arguments come back unchanged."""
+    if bundle.rules is None:
+        return args
+    rules = bundle.rules
+
+    def walk(x, spec):
+        if spec is None:
+            return x
+        if isinstance(x, Mapping):
+            return {k: walk(x[k], spec[k]) for k in x}
+        if isinstance(x, list):
+            return [walk(a, s) for a, s in zip(x, spec)]
+        return rules_lib.place(x, rules.mesh, rules.placements(spec, x.shape))
+
+    return tuple(walk(a, s) for a, s in zip(args, bundle.in_shardings))
 
 
 def _specs_for(family: str, cfg):
@@ -220,24 +252,57 @@ def _sampler_generator(device: torch.device) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(0)
 
 
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "build_bundle(mesh=...): mesh-sharded steps are not ported yet "
-            "(ROADMAP queue 1 item 3, sharding); pass mesh=None for one device")
+class _Sharded:
+    """A serving bundle's sharding on the rules' mesh: spec trees, the step
+    run under the rules, and the bundle; without rules, no specs and the
+    step as it is."""
+
+    def __init__(self, rules, specs_tree):
+        self.rules = rules
+        self.params = None if rules is None else param_lib.tree_map(
+            lambda s: rules.spec_for(s.shape, s.axes), specs_tree)
+
+    def spec(self, shape, axes):
+        return None if self.rules is None else self.rules.spec_for(tuple(shape), tuple(axes))
+
+    def tree(self, tree, axes):
+        """Specs of a dict (or list of dicts) of tensors; ``axes`` one tuple
+        for every leaf or a dict of them by key."""
+        if isinstance(tree, list):
+            return [self.tree(t, axes) for t in tree]
+        return {k: self.spec(v.shape, axes[k] if isinstance(axes, dict) else axes)
+                for k, v in tree.items()}
+
+    def bundle(self, name, step, inputs, in_sh, out_sh, flops, **kw) -> StepBundle:
+        if self.rules is None:
+            return StepBundle(name, step, inputs, flops, **kw)
+        rules = self.rules
+
+        def run(*args):
+            with rules_lib.use_rules(rules):
+                return step(*args)
+        return StepBundle(name, run, inputs, flops, in_shardings=in_sh, out_shardings=out_sh,
+                          rules=rules, **kw)
 
 
 def build_bundle(arch_name: str, shape_name: str, mesh=None, *,
                  smoke: bool = False) -> StepBundle:
-    """The bundle of ``arch_name`` at ``shape_name``."""
-    _no_mesh(mesh)
+    """The bundle of ``arch_name`` at ``shape_name``; with ``mesh`` (serving
+    shapes only) a sharded bundle (see the module docstring)."""
     arch = get_arch(arch_name)
     shape = arch.shape(shape_name)
     if shape.skip_reason and not smoke:
         raise SkipShape(arch_name, shape_name, shape.skip_reason)
     cfg = config_for_shape(arch, shape, smoke=smoke)
     train = shape.kind == "train"
+    if train and mesh is not None:
+        raise NotImplementedError(
+            f"build_bundle({arch_name!r}, {shape_name!r}, mesh=...): the sharded train "
+            "step is not ported yet; it comes with the training mesh, the next slice "
+            "of the port (ROADMAP.md queue 1). Pass mesh=None for one device")
     specs_tree = _specs_for(arch.family, cfg)
+    rules = None if mesh is None else rules_lib.make_rules(arch.serve_profile, mesh)
+    sharded = _Sharded(rules, specs_tree)
     aparams = param_lib.abstract_params(specs_tree, dtype=getattr(cfg, "dtype", None))
     ocfg = adamw.AdamWConfig()
     n_params = param_lib.param_count(specs_tree)
@@ -272,20 +337,29 @@ def build_bundle(arch_name: str, shape_name: str, mesh=None, *,
             def step(params, batch):
                 return lm_lib.prefill(params, cfg, batch["tokens"])
 
-            return StepBundle(name, step, (aparams, batch),
-                              transformer_model_flops(active, gb * seq, False))
+            acache = lm_lib.abstract_cache(cfg, gb, seq, dtype=cfg.cache_dtype)
+            return sharded.bundle(
+                name, step, (aparams, batch),
+                (sharded.params, sharded.tree(batch, ("batch", "seq"))),
+                (sharded.spec((gb, 1, cfg.vocab), ("batch", None, "act_vocab")),
+                 sharded.tree(acache, lm_lib.cache_axes(cfg))),
+                transformer_model_flops(active, gb * seq, False))
 
         # decode
         if smoke:
             gb, seq = 2, 64
         batch = {"token": _meta((gb, 1), torch.int32)}
-        acache = lm_lib.init_cache(cfg, gb, seq, dtype=cfg.cache_dtype, device="meta")
+        acache = lm_lib.abstract_cache(cfg, gb, seq, dtype=cfg.cache_dtype)
 
         def step(params, batch, cache, index):
             return lm_lib.decode_step(params, cfg, batch["token"], cache, index)
 
-        return StepBundle(name, step, (aparams, batch, acache, 0),
-                          transformer_model_flops(active, gb, False))
+        cache_sh = sharded.tree(acache, lm_lib.cache_axes(cfg))
+        return sharded.bundle(
+            name, step, (aparams, batch, acache, 0),
+            (sharded.params, sharded.tree(batch, ("batch", None)), cache_sh, None),
+            (sharded.spec((gb, 1, cfg.vocab), ("batch", None, "act_vocab")), cache_sh),
+            transformer_model_flops(active, gb, False))
 
     # ----------------------------------------------------- vision families
     if arch.family in ("vit", "swin", "resnet"):
@@ -319,7 +393,11 @@ def build_bundle(arch_name: str, shape_name: str, mesh=None, *,
         def step(params, batch):
             return fwd(params, batch["images"])
 
-        return StepBundle(name, step, (aparams, batch), mflops)
+        return sharded.bundle(
+            name, step, (aparams, batch),
+            (sharded.params, sharded.tree(batch, {"images": ("batch", None, None, None),
+                                                  "labels": ("batch",)})),
+            sharded.spec((sh.batch, cfg.n_classes), ("batch", "act_vocab")), mflops)
 
     # ----------------------------------------------------- diffusion families
     if arch.family == "dit":
@@ -346,9 +424,12 @@ def build_bundle(arch_name: str, shape_name: str, mesh=None, *,
                                         device=y.device)
 
         tokens = bsz * cfg.num_tokens * steps
-        return StepBundle(name, step, (aparams, batch),
-                          transformer_model_flops(n_params, tokens, False),
-                          notes=f"sampler: {steps} denoise steps")
+        return sharded.bundle(
+            name, step, (aparams, batch),
+            (sharded.params, sharded.tree(batch, ("batch",))),
+            sharded.spec((bsz, lres, lres, cfg.latent_channels), ("batch", None, None, None)),
+            transformer_model_flops(n_params, tokens, False),
+            notes=f"sampler: {steps} denoise steps")
 
     if arch.family == "flux":
         bsz = 2 if smoke else shape.batch
@@ -377,8 +458,12 @@ def build_bundle(arch_name: str, shape_name: str, mesh=None, *,
             return diffusion.flux_sample(params, cfg, _sampler_generator(dev), batch["txt"],
                                          batch["vec"], steps, device=dev)
 
-        return StepBundle(name, step, (aparams, batch), flux_fwd_flops(cfg, bsz) * steps,
-                          notes=f"sampler: {steps} denoise steps")
+        return sharded.bundle(
+            name, step, (aparams, batch),
+            (sharded.params, sharded.tree(batch, {"txt": ("batch", None, None),
+                                                  "vec": ("batch", None)})),
+            sharded.spec((bsz, lres, lres, cfg.latent_channels), ("batch", None, None, None)),
+            flux_fwd_flops(cfg, bsz) * steps, notes=f"sampler: {steps} denoise steps")
 
     raise ValueError(f"unknown family {arch.family}")
 

@@ -13,8 +13,9 @@ card the tensor-core flash kernel), a merge layer matches through
 kernel), and the per-layer unmerge maps broadcast merged tokens' outputs
 back to the dense grid, so the output has the dense forward's shape.
 
-Not ported yet: the sharding ``constrain`` annotation of ``forward`` (a
-no-op on one device; it comes with the mesh slice).
+Under sharding rules ``forward`` constrains the embedded tokens to
+("batch", "seq", "act_embed"), as the reference; without rules it is the
+identity.
 """
 from __future__ import annotations
 
@@ -28,6 +29,7 @@ from repro_torch.core import tome
 from repro_torch.models import layers as L
 from repro_torch.models.param import ParamSpec, layer_params, stack_specs
 from repro_torch.models.vit import patchify
+from repro_torch.sharding.rules import constrain
 
 
 @dataclasses.dataclass(frozen=True)
@@ -152,7 +154,7 @@ def forward(params: dict, cfg: DiTConfig, latents: torch.Tensor, t: torch.Tensor
             y: torch.Tensor) -> torch.Tensor:
     """Predict the noise eps. latents [B, latent_res, latent_res, C]; t [B]
     float; y [B] class ids -> [B, latent_res, latent_res, C]."""
-    x = _embed(params, cfg, latents)
+    x = constrain(_embed(params, cfg, latents), ("batch", "seq", "act_embed"))
     c = conditioning(params, cfg, t, y)
     for l in range(cfg.n_layers):
         x = L.remat(cfg.remat, _block, layer_params(params, l), cfg, x, c)

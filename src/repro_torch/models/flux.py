@@ -17,8 +17,9 @@ at 4608 tokens and B=4). The bf16 rounding points differ: the reference
 rounds the softmax weights to bf16 before P.V, the kernel rounds once at
 the output; so parity with the reference is stated in f32.
 
-Not ported yet: the sharding ``constrain`` annotations of ``forward``
-(no-ops on one device; they come with the mesh slice).
+Under sharding rules ``forward`` constrains the embedded image and text
+streams to ("batch", "seq", "act_embed"), as the reference; without rules
+it is the identity.
 """
 from __future__ import annotations
 
@@ -28,6 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import layers as L
+from repro_torch.sharding.rules import constrain
 from repro_torch.models.dit import patchify, unpatchify
 from repro_torch.models.param import layer_params, stack_specs
 
@@ -188,6 +190,8 @@ def forward(params: dict, cfg: FluxConfig, latents: torch.Tensor, txt: torch.Ten
     b, g = latents.shape[0], cfg.grid
     img = L.linear(params["img_in"], patchify(cfg, latents.to(cfg.dtype)))
     txt_e = L.linear(params["txt_in"], txt.to(cfg.dtype))
+    img = constrain(img, ("batch", "seq", "act_embed"))
+    txt_e = constrain(txt_e, ("batch", "seq", "act_embed"))
 
     vec_c = (_mlp_embed(params, "time_in", L.timestep_embedding(t * 1000.0, 256).to(cfg.dtype))
              + _mlp_embed(params, "guid_in",

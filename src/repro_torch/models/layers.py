@@ -17,8 +17,11 @@ import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint
 
+from torch.distributed.tensor import DTensor, Shard
+
 from repro_torch.kernels import ops
 from repro_torch.models.param import ParamSpec
+from repro_torch.sharding.rules import local_part
 
 # ---------------------------------------------------------------------------
 # specs
@@ -212,6 +215,23 @@ def _dequantize(cache: torch.Tensor, scale: float | None, dtype: torch.dtype) ->
     return (cache.float() * scale).to(dtype)
 
 
+def cache_write(cache: torch.Tensor, value: torch.Tensor, start: int) -> None:
+    """``cache[:, start:start + S] = value`` in place, for a cache [B, S_max,
+    n_kv, hd] and a value [B, S, n_kv, hd]. On a DTensor cache the write runs
+    on this rank's local tensors (the value brought to the cache's
+    placements), so it lands in the cache's own storage; a cache sharded on
+    its sequence dim over more than one rank raises."""
+    if isinstance(cache, DTensor):
+        mesh = cache.device_mesh
+        if any(mesh.size(i) > 1 and isinstance(p, Shard) and p.dim == 1
+               for i, p in enumerate(cache.placements)):
+            raise ValueError("cache_write: the cache is sharded on its sequence dim; "
+                             "a write needs batch or kv-head sharding")
+        value = local_part(value, mesh, cache.placements)
+        cache = cache.to_local()
+    cache[:, start:start + value.shape[1]] = value
+
+
 def attention(p: dict, x: torch.Tensor, *, n_heads: int, n_kv: int, head_dim: int,
               causal: bool = False, rope: bool = False, rope_theta: float = 10000.0,
               bias: torch.Tensor | None = None, return_metric: bool = False,
@@ -254,8 +274,8 @@ def attention(p: dict, x: torch.Tensor, *, n_heads: int, n_kv: int, head_dim: in
             raise ValueError(f"a cached call decodes one token, got {s}")
         k_cache, v_cache = kv_cache
         idx = 0 if cache_index is None else cache_index
-        k_cache[:, idx] = _quantize(k[:, 0], cache_quant_scale, k_cache.dtype)
-        v_cache[:, idx] = _quantize(v[:, 0], cache_quant_scale, v_cache.dtype)
+        cache_write(k_cache, _quantize(k[:, 0], cache_quant_scale, k_cache.dtype)[:, None], idx)
+        cache_write(v_cache, _quantize(v[:, 0], cache_quant_scale, v_cache.dtype)[:, None], idx)
         new_cache = (k_cache, v_cache)
         if kv_len is None:
             kv_len = torch.full((b,), idx + 1, dtype=torch.int32, device=x.device)

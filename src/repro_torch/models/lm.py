@@ -17,9 +17,15 @@ The cache is either ``stacked``, {"k", "v"} [L, B, S_max, n_kv, hd], or
 ``per_layer``, a list of L {"k", "v"} [B, S_max, n_kv, hd] buffers; with
 ``cache_quant_scale`` its entries are int8 steps of that scale. Layers run
 in a Python loop over the stacked ``blocks/*`` params (the reference scans
-them). Not ported: ``abstract_cache`` and ``cache_axes``, which serve the
-reference's sharding and ahead-of-time compilation (ROADMAP queue 1,
-item 3).
+them).
+
+Under sharding rules (``sharding.rules.use_rules``) the reference's
+``constrain`` sites apply to the DTensor activations; ``init_cache``
+places the cache by ``cache_axes`` (``abstract_cache`` gives its shapes as
+meta tensors) once, and every write into it (``layers.cache_write``) is in
+place on each rank's local tensors, so the reference's per-step
+re-constraint of the cache has nothing to do. With ``moe_impl="a2a"`` and
+rules active, the MoE layers run ``moe_a2a.apply`` on the rules' mesh.
 """
 from __future__ import annotations
 
@@ -29,8 +35,10 @@ import torch
 
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
-from repro_torch.models.param import flatten, layer_params, stack_specs
+from repro_torch.models import moe_a2a
+from repro_torch.models.param import flatten, layer_params, stack_specs, tree_map
 from repro_torch.runtime.device import require_on, resolve_device
+from repro_torch.sharding.rules import constrain, current_rules
 
 
 @dataclasses.dataclass(frozen=True)
@@ -38,9 +46,9 @@ class LMConfig:
     """The reference's fields and defaults. ``remat`` recomputes each block
     of ``forward`` in the backward (``layers.remat``). ``attn_chunk`` and
     ``cache_reshard_per_layer`` concern the chunked jnp attention or meshes;
-    the port accepts and ignores them. ``moe_impl="a2a"`` needs a
-    mesh; without one the reference takes the gspmd path, and so does the
-    port, always."""
+    the port accepts and ignores them. ``moe_impl="a2a"`` runs
+    ``moe_a2a.apply`` on the active rules' mesh; without rules the gspmd
+    path serves, as in the reference."""
     n_layers: int
     d_model: int
     n_heads: int
@@ -105,10 +113,14 @@ def specs(cfg: LMConfig) -> dict:
 
 
 def _ffn(bp: dict, cfg: LMConfig, x: torch.Tensor):
-    """(ffn(x), aux loss): the MoE layer's, or a dense FFN's and 0. Both
-    ``moe_impl`` values run ``moe.apply`` (the reference's a2a path needs a
-    mesh, and without one it takes this path too)."""
+    """(ffn(x), aux loss): the MoE layer's, or a dense FFN's and 0. With
+    ``moe_impl="a2a"`` and rules active the MoE layer is ``moe_a2a.apply``
+    on the rules' mesh; otherwise ``moe.apply`` (without a mesh the two are
+    the same computation)."""
     if cfg.moe is not None:
+        rules = current_rules()
+        if cfg.moe_impl == "a2a" and rules is not None:
+            return moe_a2a.apply(bp["moe"], cfg.moe, x, rules.mesh)
         return moe_lib.apply(bp["moe"], cfg.moe, x)
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.act == "swiglu":
@@ -121,28 +133,32 @@ def _block(bp: dict, cfg: LMConfig, x: torch.Tensor, *, kv_cache=None,
            return_kv: bool = False):
     """One layer: returns (x, new_cache, aux) with ``new_cache`` as
     ``layers.attention`` defines it."""
+    h = constrain(L.norm(cfg.norm, bp["norm1"], x), ("batch", "seq", "act_embed"))
     attn_out, new_cache = L.attention(
-        bp["attn"], L.norm(cfg.norm, bp["norm1"], x), n_heads=cfg.n_heads, n_kv=cfg.n_kv,
+        bp["attn"], h, n_heads=cfg.n_heads, n_kv=cfg.n_kv,
         head_dim=cfg.hd, causal=True, rope=True, rope_theta=cfg.rope_theta,
         kv_cache=kv_cache, cache_index=cache_index, kv_len=kv_len,
         cache_quant_scale=cfg.cache_quant_scale, return_kv=return_kv)
     x = x + attn_out
     ffn_out, aux = _ffn(bp, cfg, L.norm(cfg.norm, bp["norm2"], x))
-    return x + ffn_out, new_cache, aux
+    x = constrain(x + ffn_out, ("batch", "seq", "act_embed"))
+    return x, new_cache, aux
 
 
 def _logits(params: dict, cfg: LMConfig, x: torch.Tensor) -> torch.Tensor:
     x = L.norm(cfg.norm, params["norm_f"], x)
     if cfg.tie_embeddings:
-        return L.unembed(params["embed"], x)
-    return L.linear(params["lm_head"], x)
+        out = L.unembed(params["embed"], x)
+    else:
+        out = L.linear(params["lm_head"], x)
+    return constrain(out, ("batch", "seq", "act_vocab"))
 
 
 def forward(params: dict, cfg: LMConfig, tokens: torch.Tensor):
     """tokens [B, S] -> (logits [B, S, V], aux loss: the sum of the MoE
     layers' load-balancing losses, f32, 0 for a dense model)."""
     require_on(tokens.device, {f"params/{k}": v for k, v in flatten(params).items()})
-    x = L.embed(params["embed"], tokens).to(cfg.dtype)
+    x = constrain(L.embed(params["embed"], tokens).to(cfg.dtype), ("batch", "seq", "act_embed"))
     aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
     for l in range(cfg.n_layers):
         x, _, layer_aux = L.remat(cfg.remat, _block, layer_params(params, l), cfg, x)
@@ -164,16 +180,42 @@ def init_cache(cfg: LMConfig, batch: int, max_len: int, dtype=torch.bfloat16,
     hd] (``stacked``) or a list of L {"k", "v"} [B, max_len, n_kv, hd]
     (``per_layer``), on ``device`` (``cuda`` unless the caller passes
     ``device="cpu"``; raises if no card is there). ``prefill`` passes
-    ``cfg.cache_dtype``."""
+    ``cfg.cache_dtype``. Under rules each buffer is placed by
+    ``cache_axes(cfg)``."""
     device = resolve_device(device)
+    rules = current_rules()
+    axes = cache_axes(cfg)
+
+    def buffer(t: torch.Tensor) -> torch.Tensor:
+        z = torch.zeros(t.shape, dtype=dtype, device=device)
+        return z if rules is None or device.type == "meta" else rules.place(z, axes)
+
+    cache = abstract_cache(cfg, batch, max_len, dtype)
+    if isinstance(cache, dict):
+        return tree_map(buffer, cache)
+    return [tree_map(buffer, layer) for layer in cache]
+
+
+def abstract_cache(cfg: LMConfig, batch: int, max_len: int, dtype=torch.bfloat16):
+    """The cache's buffers as meta tensors (shapes and dtypes, no memory),
+    in ``cfg.cache_layout``."""
     if cfg.cache_layout == "per_layer":
         shape = (batch, max_len, cfg.n_kv, cfg.hd)
-        return [{"k": torch.zeros(shape, dtype=dtype, device=device),
-                 "v": torch.zeros(shape, dtype=dtype, device=device)}
+        return [{"k": torch.empty(shape, dtype=dtype, device="meta"),
+                 "v": torch.empty(shape, dtype=dtype, device="meta")}
                 for _ in range(cfg.n_layers)]
     shape = (cfg.n_layers, batch, max_len, cfg.n_kv, cfg.hd)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+    return {"k": torch.empty(shape, dtype=dtype, device="meta"),
+            "v": torch.empty(shape, dtype=dtype, device="meta")}
+
+
+CACHE_AXES = ("layers", "batch", "act_seq_kv", "act_kv", None)
+CACHE_AXES_PER_LAYER = ("batch", "act_seq_kv", "act_kv", None)
+
+
+def cache_axes(cfg: LMConfig):
+    return (CACHE_AXES_PER_LAYER if cfg.cache_layout == "per_layer"
+            else CACHE_AXES)
 
 
 def _layer_cache(cache, l: int) -> tuple[torch.Tensor, torch.Tensor]:
@@ -195,12 +237,12 @@ def prefill(params: dict, cfg: LMConfig, tokens: torch.Tensor, max_len: int | No
     if max_len < s:
         raise ValueError(f"max_len {max_len} < prompt length {s}")
     cache = init_cache(cfg, b, max_len, dtype=cfg.cache_dtype, device=tokens.device)
-    x = L.embed(params["embed"], tokens).to(cfg.dtype)
+    x = constrain(L.embed(params["embed"], tokens).to(cfg.dtype), ("batch", "seq", "act_embed"))
     for l in range(cfg.n_layers):
         x, (k, v), _ = _block(layer_params(params, l), cfg, x, return_kv=True)
         kc, vc = _layer_cache(cache, l)
-        kc[:, :s] = k
-        vc[:, :s] = v
+        L.cache_write(kc, k, 0)
+        L.cache_write(vc, v, 0)
     return _logits(params, cfg, x[:, -1:]), cache
 
 
@@ -221,7 +263,7 @@ def decode_step(params: dict, cfg: LMConfig, token: torch.Tensor, cache, index: 
     index = int(index)
     if not 0 <= index < k0.shape[1]:
         raise ValueError(f"index {index} outside the cache capacity {k0.shape[1]}")
-    x = L.embed(params["embed"], token).to(cfg.dtype)
+    x = constrain(L.embed(params["embed"], token).to(cfg.dtype), ("batch", "seq", "act_embed"))
     kv_len = torch.full((token.shape[0],), index + 1, dtype=torch.int32, device=token.device)
     for l in range(cfg.n_layers):
         x, _, _ = _block(layer_params(params, l), cfg, x, kv_cache=_layer_cache(cache, l),

@@ -27,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.param import ParamSpec
+from repro_torch.sharding.rules import constrain, run_local
 
 
 @dataclasses.dataclass(frozen=True)
@@ -98,7 +99,7 @@ def apply(params: dict, cfg: MoEConfig, x: torch.Tensor):
     g = t // sg
     k, e, c = cfg.top_k, cfg.e_pad, cfg.capacity(sg)
 
-    xg = x.reshape(g, sg, d)
+    xg = constrain(x.reshape(g, sg, d), ("batch", None, "act_embed"))
     logits = xg @ params["router"].to(xg.dtype)
     gates, experts = route(cfg, logits)  # [g, sg, k]
 
@@ -108,21 +109,28 @@ def apply(params: dict, cfg: MoEConfig, x: torch.Tensor):
     aux_loss = cfg.n_experts * torch.sum(frac * probs.mean(dim=(0, 1)))
 
     # per-group dispatch bookkeeping: slots in token-major, k-minor order
-    e_slots = experts.reshape(g, sg * k)
-    pos = _positions_in_expert(e_slots, e)
-    kept = pos < c
-    dest = torch.where(kept, e_slots * c + pos, e * c)  # sentinel = e * c
-    # slot of each (expert, capacity) cell; only the sentinel column takes
-    # duplicate writes, and it is discarded
-    slot_of_cell = torch.full((g, e * c + 1), sg * k, dtype=torch.int64, device=x.device)
-    slot_of_cell.scatter_(1, dest, torch.arange(sg * k, device=x.device).expand(g, -1))
-    slot_of_cell = slot_of_cell[:, :e * c]
+    def dispatch(e_slots):
+        pos = _positions_in_expert(e_slots, e)
+        kept = pos < c
+        dest = torch.where(kept, e_slots * c + pos, e * c)  # sentinel = e * c
+        # slot of each (expert, capacity) cell; only the sentinel column takes
+        # duplicate writes, and it is discarded
+        slot_of_cell = torch.full((e_slots.shape[0], e * c + 1), sg * k, dtype=torch.int64,
+                                  device=e_slots.device)
+        slot_of_cell.scatter_(1, dest, torch.arange(sg * k, device=e_slots.device).expand(
+            e_slots.shape[0], -1))
+        return kept, dest, slot_of_cell[:, :e * c]
+
+    rows = ("batch", None)
+    kept, dest, slot_of_cell = run_local("moe dispatch", dispatch,
+                                         (experts.reshape(g, sg * k),), (rows,), [rows] * 3)
 
     # gather expert inputs: [g, e, c, d]
     token_of_cell = torch.clamp(slot_of_cell // k, max=sg - 1)  # sentinel-safe
     cell_valid = (slot_of_cell < sg * k)[..., None]
     x_exp = torch.gather(xg, 1, token_of_cell[..., None].expand(-1, -1, d))
     x_exp = torch.where(cell_valid, x_exp, 0).reshape(g, e, c, d)
+    x_exp = constrain(x_exp, ("batch", "act_experts", None, "act_embed"))
 
     # expert FFN (SwiGLU), batched over experts: [e, g*c, d]
     xe = x_exp.transpose(0, 1).reshape(e, g * c, d)
@@ -131,11 +139,14 @@ def apply(params: dict, cfg: MoEConfig, x: torch.Tensor):
     y_exp = torch.bmm(h, params["w_down"].to(x.dtype))  # [e, g*c, d]
 
     # combine: gather each slot's output, weight by gate, sum over k
-    y_flat = y_exp.reshape(e, g, c, d).transpose(0, 1).reshape(g, e * c, d)
+    y_exp = constrain(y_exp.reshape(e, g, c, d).transpose(0, 1),
+                      ("batch", "act_experts", None, "act_embed"))
+    y_flat = y_exp.reshape(g, e * c, d)
     safe_dest = torch.clamp(dest, max=e * c - 1)
     y_slots = torch.gather(y_flat, 1, safe_dest[..., None].expand(-1, -1, d))
     y_slots = torch.where(kept[..., None], y_slots, 0).reshape(g, sg, k, d)
     y = torch.einsum("gskd,gsk->gsd", y_slots, gates.to(x.dtype))
+    y = constrain(y, ("batch", None, "act_embed"))
     return y.reshape(b, s, d), aux_loss
 
 

@@ -22,8 +22,8 @@ remaining identical blocks are stacked over a leading axis (the reference
 scans them; they run one after another here). Token pruning does not apply
 (no tokens); Janus splits a CNN at stage boundaries (``stage_features``).
 
-Not ported yet: the sharding ``constrain`` annotation (a no-op on one
-device).
+Under sharding rules each stage's first block's output is constrained to
+("batch", "act_spatial", None, "act_conv_out"), as the reference.
 """
 from __future__ import annotations
 
@@ -34,6 +34,7 @@ import torch.nn.functional as F
 
 from repro_torch.models import layers as L
 from repro_torch.models.param import ParamSpec, layer_params, stack_specs
+from repro_torch.sharding.rules import constrain, run_local
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,18 +69,30 @@ def _pad_nchw(x: torch.Tensor, k: int, stride: int, value: float = 0.0):
     return F.pad(x, (pw[0], pw[1], ph[0], ph[1]), value=value), (0, 0)
 
 
+_NHWC = ("batch", None, None, "channels")
+
+
 def conv(p: dict, x: torch.Tensor, stride: int = 1) -> torch.Tensor:
-    """x [B, H, W, Cin] (NHWC) * HWIO kernel, SAME padding -> [B, H', W', Cout]."""
-    w = p["w"].to(x.dtype)
-    xc, pad = _pad_nchw(x.permute(0, 3, 1, 2), w.shape[0], stride)
-    y = F.conv2d(xc, w.permute(3, 2, 0, 1), stride=stride, padding=pad)
-    return y.permute(0, 2, 3, 1)
+    """x [B, H, W, Cin] (NHWC) * HWIO kernel, SAME padding -> [B, H', W', Cout].
+    On DTensors it runs behind the local boundary (DTensor's convolution
+    takes only some shardings): batch and output channels may be sharded,
+    input channels not."""
+    def local(x, w):
+        w = w.to(x.dtype)
+        xc, pad = _pad_nchw(x.permute(0, 3, 1, 2), w.shape[0], stride)
+        y = F.conv2d(xc, w.permute(3, 2, 0, 1), stride=stride, padding=pad)
+        return y.permute(0, 2, 3, 1)
+    return run_local("conv", local, (x, p["w"]),
+                     (("batch", None, None, None), (None, None, None, "channels")), _NHWC)
 
 
 def _max_pool(x: torch.Tensor) -> torch.Tensor:
-    """3x3/2 max pool, SAME padding with -inf, NHWC."""
-    xc, pad = _pad_nchw(x.permute(0, 3, 1, 2), 3, 2, value=-torch.inf)
-    return F.max_pool2d(xc, 3, 2, padding=pad).permute(0, 2, 3, 1)
+    """3x3/2 max pool, SAME padding with -inf, NHWC (channels independent;
+    behind the local boundary on DTensors)."""
+    def local(x):
+        xc, pad = _pad_nchw(x.permute(0, 3, 1, 2), 3, 2, value=-torch.inf)
+        return F.max_pool2d(xc, 3, 2, padding=pad).permute(0, 2, 3, 1)
+    return run_local("max_pool", local, (x,), (_NHWC,), _NHWC)
 
 
 def bn_specs(c: int) -> dict:
@@ -149,6 +162,7 @@ def _stages(params: dict, cfg: ResNetConfig, images: torch.Tensor, train: bool):
     yield x
     for i, depth in enumerate(cfg.depths):
         x = _bottleneck(params[f"stage{i}_first"], x, 1 if i == 0 else 2, train)
+        x = constrain(x, ("batch", "act_spatial", None, "act_conv_out"))
         for l in range(depth - 1):
             x = _bottleneck(layer_params(params, l, f"stage{i}_rest"), x, 1, train)
         yield x

@@ -18,7 +18,8 @@ f32, and its scan then rejects the changed carry type (a bf16 Swin runs
 there only on bf16 weights); on bf16 weights both agree.
 
 Janus splits Swin at stage boundaries; ToMe does not apply (windows need
-dense grids). Not ported yet: the sharding ``constrain`` annotation.
+dense grids). Under sharding rules each stage's output is constrained to
+("batch", None, None, "act_embed"), as the reference.
 """
 from __future__ import annotations
 
@@ -31,6 +32,7 @@ import torch
 
 from repro_torch.models import layers as L
 from repro_torch.models.param import ParamSpec, layer_params, stack_specs
+from repro_torch.sharding.rules import constrain, run_local
 
 
 @dataclasses.dataclass(frozen=True)
@@ -125,6 +127,14 @@ def specs(cfg: SwinConfig) -> dict:
     return p
 
 
+def _roll(x: torch.Tensor, shift: int) -> torch.Tensor:
+    """x [B, hw, hw, C] rolled by ``shift`` on both spatial dims; behind the
+    local boundary on DTensors (DTensor has no strategy for ``roll``)."""
+    rows = ("batch", None, None, "channels")
+    return run_local("roll", lambda t: torch.roll(t, (shift, shift), dims=(1, 2)), (x,),
+                     (rows,), rows)
+
+
 def _win_attention(bp: dict, cfg: SwinConfig, x: torch.Tensor, heads: int,
                    shift: bool, hw: int) -> torch.Tensor:
     """Windowed (optionally shifted) attention over x [B, hw, hw, C]."""
@@ -137,22 +147,31 @@ def _win_attention(bp: dict, cfg: SwinConfig, x: torch.Tensor, heads: int,
     sh = ws // 2
     h = L.layernorm(bp["ln1"], x)
     if shift:
-        h = torch.roll(h, (-sh, -sh), dims=(1, 2))
+        h = _roll(h, -sh)
     win = _window_partition(h, ws)  # [B*nW, n, C]
     dim = win.shape[-1]
     hd = dim // heads
     q, k, v = (L._proj(bp["attn"], name, win, heads, hd).transpose(1, 2) for name in "qkv")
-    scores = torch.matmul(q, k.transpose(-1, -2)).float() / math.sqrt(hd)  # [B*nW, H, n, n]
-    scores = scores + rel_bias[None].float()
-    if shift:
-        m = mask.repeat(b, 1, 1)[:, None]  # [B*nW, 1, n, n]
-        scores = torch.where(m, scores, torch.full_like(scores, -1e30))
-    w = torch.softmax(scores, dim=-1).to(x.dtype)
-    out = torch.matmul(w, v).transpose(1, 2).reshape(win.shape[0], n, dim)
+
+    def core(q, k, v, rel_bias):
+        scores = torch.matmul(q, k.transpose(-1, -2)).float() / math.sqrt(hd)  # [B*nW, H, n, n]
+        scores = scores + rel_bias[None].float()
+        if shift:
+            m = mask.repeat(q.shape[0] // mask.shape[0], 1, 1)[:, None]  # [B*nW, 1, n, n]
+            scores = torch.where(m, scores, torch.full_like(scores, -1e30))
+        w = torch.softmax(scores, dim=-1).to(x.dtype)
+        return torch.matmul(w, v)
+
+    # windows and heads are independent: on DTensors, behind the local boundary
+    # (DTensor cannot flatten the head-sharded [B*nW, H] dims of the matmuls)
+    rows = ("batch", "heads", None, None)
+    out = run_local("swin window attention", core, (q, k, v, rel_bias),
+                    (rows, rows, rows, ("heads", None, None)), rows)
+    out = out.transpose(1, 2).reshape(win.shape[0], n, dim)
     out = out @ bp["attn"]["wo"].to(out.dtype) + bp["attn"]["bo"].to(x.dtype)
     out = _window_reverse(out, ws, b, hw, hw)
     if shift:
-        out = torch.roll(out, (sh, sh), dims=(1, 2))
+        out = _roll(out, sh)
     return out
 
 
@@ -176,6 +195,7 @@ def forward(params: dict, cfg: SwinConfig, images: torch.Tensor) -> torch.Tensor
             pair = layer_params(params, j, f"stage{i}")
             x = _block(pair["reg"], cfg, x, cfg.heads[i], False, hw)
             x = _block(pair["shift"], cfg, x, cfg.heads[i], True, hw)
+        x = constrain(x, ("batch", None, None, "act_embed"))
         if i < len(cfg.depths) - 1:
             # patch merging: 2x2 neighbourhoods -> 4C -> proj to the next dim
             x = x.reshape(b, hw // 2, 2, hw // 2, 2, cfg.dims[i])

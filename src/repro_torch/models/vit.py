@@ -9,8 +9,10 @@ partition separately. Parameters are the reference's tree (``specs``), with
 ``blocks/*`` stacked over layers; ``layer_params`` slices one layer (views,
 no copies).
 
-Not ported yet: the sharding ``constrain`` annotations of ``run_blocks``,
-which are no-ops on one device (they come with the mesh slice).
+Under sharding rules (``sharding.rules.use_rules``) ``run_blocks`` and
+``run_blocks_padded`` constrain the activation to ``[batch(dp), tokens,
+d(replicated)]`` after every layer, as the reference; without rules the
+constraint is the identity.
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ import torch
 from repro_torch.core import tome
 from repro_torch.models import layers as L
 from repro_torch.models.param import ParamSpec, layer_params, stack_specs
+from repro_torch.sharding.rules import constrain
 
 
 @dataclasses.dataclass(frozen=True)
@@ -130,6 +133,9 @@ def run_blocks(params: dict, cfg: ViTConfig, x: torch.Tensor, sizes: torch.Tenso
         raise ValueError(f"schedule has {len(schedule)} entries, model {cfg.n_layers} layers")
     for l in range(start, end):
         x, sizes = _block(layer_params(params, l), cfg, x, sizes, merge_r=int(schedule[l]))
+        # keep [batch(dp), tokens, d(replicated)] stable across the merge layers
+        x = constrain(x, ("batch", None, None))
+        sizes = constrain(sizes, ("batch", None))
     return x, sizes
 
 
@@ -163,6 +169,8 @@ def run_blocks_padded(params: dict, cfg: ViTConfig, x: torch.Tensor, sizes: torc
     for l in range(start, end):
         x, sizes = _block_padded(layer_params(params, l), cfg, x, sizes,
                                  merge_r=int(schedule[l]))
+        x = constrain(x, ("batch", None, None))
+        sizes = constrain(sizes, ("batch", None))
     return x, sizes
 
 

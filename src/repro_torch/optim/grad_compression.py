@@ -9,7 +9,8 @@
 * ``int8_compress``/``int8_decompress``: per-tensor max-abs int8
   quantization (``torch.round`` and ``jnp.round`` both round half to even).
 * ``compressed_psum_mean``, the data-parallel mean with an int8 wire format,
-  needs a mesh: it waits for sharding (ROADMAP queue 1 item 3) and raises.
+  needs the sharded train step: it waits for the training mesh, the next
+  slice of the port (ROADMAP.md queue 1), and raises.
 """
 from __future__ import annotations
 
@@ -59,5 +60,5 @@ def int8_decompress(q: torch.Tensor, scale: torch.Tensor, dtype=torch.float32):
 def compressed_psum_mean(tree, mesh, axis: str = "data"):
     """Data-parallel mean with an int8 wire format: needs a mesh."""
     raise NotImplementedError(
-        "compressed_psum_mean needs a device mesh: sharding is not ported yet "
-        "(ROADMAP queue 1 item 3)")
+        "compressed_psum_mean is not ported yet: it comes with the training mesh, "
+        "the next slice of the port (ROADMAP.md queue 1)")

@@ -114,12 +114,13 @@ from repro_torch.core.bandwidth import HarmonicMeanEstimator, NetworkTrace
 from repro_torch.core.bucketing import BucketingConfig, BucketTable
 from repro_torch.core.engine import (CompiledPlanCache, EngineConfig, FrameResult,
                                      FrameStep, JanusEngine, RunStats,
-                                     run_cloud_batch)
+                                     run_cloud_batch, shard_params)
 from repro_torch.core.pruning import AccuracyModel
 from repro_torch.core.scheduler import ModelProfile
 from repro_torch.serving import sla as sla_lib
 from repro_torch.serving.batcher import MicroBatcher, PriorityMicroBatcher, Request
 from repro_torch.serving.faults import FaultSpec, RecoveryStats
+from repro_torch.sharding.rules import Rules
 
 __all__ = ["FleetRuntime", "FleetStats", "RegionStats", "RegionSpec",
            "StreamSpec", "CloudTierConfig", "Autoscaler", "AutoscaleConfig",
@@ -628,10 +629,6 @@ class FleetRuntime:
                  faults: FaultSpec | None = None,
                  bucketing: BucketingConfig | BucketTable | None = None,
                  mesh_rules=None, device=None):
-        if mesh_rules is not None:
-            raise NotImplementedError(
-                "mesh_rules: mesh-sharded execution is not ported yet "
-                "(ROADMAP.md queue 1 item 3, sharding)")
         self.streams = streams
         self.cloud = cloud or default_cloud_config(len(streams))
         if isinstance(autoscaler, AutoscaleConfig):
@@ -684,10 +681,21 @@ class FleetRuntime:
             any(s.sla_class != sla_lib.DEFAULT_CLASS for s in streams)
         acc = acc_model or AccuracyModel()
         self.model_cfg = model_cfg
+        # mesh-aware execution: place params per the rules' mesh once (views,
+        # no copy), and hand the rules to the plan cache so every partition
+        # runs on the mesh (dp over the stacked fleet batch, optional tp over
+        # heads/MLP). mesh_rules=None keeps the partitions unchanged.
+        if mesh_rules is not None and not isinstance(mesh_rules, Rules):
+            raise TypeError(f"mesh_rules must be sharding.rules.Rules, got "
+                            f"{type(mesh_rules).__name__}")
+        self.mesh_rules = mesh_rules
+        if mesh_rules is not None and params is not None and \
+                model_cfg is not None:
+            params = shard_params(params, model_cfg, mesh_rules)
         self.params = params
         # one plan cache for the whole fleet: streams share the model, so
         # same-geometry partition callables are built once fleet-wide
-        self.plan_cache = CompiledPlanCache()
+        self.plan_cache = CompiledPlanCache(rules=mesh_rules)
         # per-stream scheduler state: a dedicated engine (shared model/plan
         # cache; profile per device tier, planner tables value-shared per
         # tier) so per-stream SLAs and hardware drive per-stream decisions

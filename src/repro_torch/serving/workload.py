@@ -576,9 +576,9 @@ def build_runtime(spec: WorkloadSpec, profile: ModelProfile,
                   model_cfg=None, params=None, bucketing=None,
                   mesh_rules=None, device=None) -> fleet.FleetRuntime:
     """A ready-to-run FleetRuntime for the scenario on ``device`` (``cuda``
-    unless the caller passes ``device="cpu"``). ``bucketing`` configures the
-    real-execution fast path (token-count bucketing; see docs/execution.md);
-    ``mesh_rules`` is not ported yet and must stay None."""
+    unless the caller passes ``device="cpu"``). ``bucketing`` / ``mesh_rules``
+    configure the real-execution fast path (token-count bucketing and
+    mesh-sharded partitions; see docs/execution.md)."""
     return fleet.FleetRuntime(
         profile, base_cfg, spec.build_streams(profile),
         cloud=spec.cloud_config(), acc_model=acc_model,

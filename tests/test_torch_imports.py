@@ -24,6 +24,7 @@ for name in names:
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "repro" or m.startswith("repro."))
 print(len(names), "modules;", "foreign:", bad)
+print("imported:", " ".join(names))
 sys.exit(1 if bad else 0)
 """
 
@@ -39,6 +40,10 @@ def test_port_imports_neither_jax_nor_the_reference():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
     assert "foreign: []" in res.stdout
+    imported = res.stdout.split("imported:")[1].split()
+    for name in ("repro_torch.sharding", "repro_torch.sharding.rules", "repro_torch.launch.mesh",
+                 "repro_torch.models.moe_a2a"):
+        assert name in imported, name
 
 
 def test_entry_points_raise_without_a_card():
@@ -61,8 +66,8 @@ def test_entry_points_raise_without_a_card():
 
 def test_serving_entry_points_raise_without_a_card():
     """The fleet, the workload builder and the CLI's fleet mode run on
-    ``cuda`` unless told ``device="cpu"``; sharding is not ported and a
-    non-None ``mesh_rules`` says so."""
+    ``cuda`` unless told ``device="cpu"``; so does the host mesh, whose
+    group is NCCL on ``cuda`` and never falls back to gloo."""
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is usable")
     from repro_torch.configs import janus_vit_l384
@@ -80,8 +85,11 @@ def test_serving_entry_points_raise_without_a_card():
         workload.build_runtime(spec, profile, cfg)
     with pytest.raises(RuntimeError, match="cuda"):
         serve.main(["--streams", "2", "--execute"])
-    with pytest.raises(NotImplementedError, match="sharding"):
-        fleet.FleetRuntime(profile, cfg, streams, mesh_rules=object(), device="cpu")
+    from repro_torch.launch.mesh import make_host_mesh
+    with pytest.raises(RuntimeError, match="cuda"):
+        make_host_mesh()
+    with pytest.raises(RuntimeError, match="cuda"):
+        serve.main(["--streams", "2", "--execute", "--mesh", "dp"])
     rt = workload.build_runtime(spec, profile, cfg, device="cpu")
     assert {e.device for e in rt.engines} == {torch.device("cpu")}
     assert len(rt.run().all_frames) == 4

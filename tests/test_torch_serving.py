@@ -303,13 +303,23 @@ def test_workload_and_fault_spec_json_match_reference(tmp_path):
 
 
 def test_runtime_rejects_mesh_rules():
+    """``mesh_rules`` must be ``sharding.rules.Rules``; a real one reaches
+    the plan cache and leaves the timing plane as it was (the executed mesh
+    paths are ``tests/test_torch_sharding.py``'s)."""
+    from repro_torch.sharding.rules import make_rules
     _, cfg = _cfgs()
     spec = workload.WorkloadSpec.from_dict(SCENARIOS["closed-loop"])
-    with pytest.raises(NotImplementedError, match="queue 1 item 3, sharding"):
+    with pytest.raises(TypeError, match="mesh_rules"):
         workload.build_runtime(spec, _port_profile(), cfg, mesh_rules=object(),
                                device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 3, sharding"):
+    with pytest.raises(TypeError, match="mesh_rules"):
         fleet.FleetRuntime(_port_profile(), cfg, [], mesh_rules=object(), device="cpu")
+    rules = make_rules("dp", {"data": 1, "model": 1})
+    rt = workload.build_runtime(spec, _port_profile(), cfg, mesh_rules=rules, device="cpu")
+    assert rt.plan_cache.rules is rules
+    plain = workload.build_runtime(spec, _port_profile(), cfg, device="cpu").run()
+    meshed = rt.run()
+    assert [f.latency_s for f in meshed.all_frames] == [f.latency_s for f in plain.all_frames]
 
 
 # -------------------------------------------------------------------- CLI
@@ -339,13 +349,18 @@ def test_cli_fleet_report_matches_reference(argv, capsys, monkeypatch):
     assert port == ref
 
 
-def test_cli_fleet_only_flags_and_mesh_are_refused():
+def test_cli_fleet_only_flags_and_mesh_are_refused(capsys, monkeypatch):
+    """Fleet-only flags without fleet mode and an unknown ``--mesh`` profile
+    are refused; ``--mesh`` without ``--execute`` is ignored, as the
+    reference's (the executed mesh path is ``tests/test_torch_sharding.py``'s)."""
     with pytest.raises(SystemExit):
         serve.main(["--arrivals", "poisson", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="queue 1 item 3, sharding"):
-        serve.main(["--streams", "2", "--mesh", "dp", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="queue 1 item 3, sharding"):
-        serve.main(["--streams", "2", "--mesh-model", "2", "--device", "cpu"])
+    with pytest.raises(SystemExit):
+        serve.main(["--streams", "2", "--mesh", "fsdp", "--device", "cpu"])
+    argv = ["--streams", "2", "--frames", "3", "--device", "cpu"]
+    plain = _fleet_lines(serve.main, argv, capsys, monkeypatch)
+    assert _fleet_lines(serve.main, argv + ["--mesh", "dp", "--mesh-model", "2"], capsys,
+                        monkeypatch) == plain
 
 
 def test_serving_names_match_reference():

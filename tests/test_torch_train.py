@@ -600,7 +600,7 @@ def test_pick_accum_equals_the_reference():
 
 
 def test_build_bundle_mesh_waits_for_sharding():
-    with pytest.raises(NotImplementedError, match="item 3"):
+    with pytest.raises(NotImplementedError, match="the training mesh"):
         steps.build_bundle("vit-b16", "cls_224", object(), smoke=True)
 
 
