@@ -129,6 +129,16 @@ each failing the run on any failed check:
             of vit-l16 cut to 4 layers at B=4 (every gradient leaf), each
             also run with the wrong backwards (and bf16 with a wrong
             forward), which must break a limit.
+16. train mesh: the same run (seed, 4 steps, checkpoint at 2, ``--resume``
+            for 2) through ``launch.train.main([... "--mesh"])`` on the (1,1)
+            NCCL host mesh under vit-l16's train profile ``tp``: losses
+            against ``[train]``'s (bit-equal: the same aten ops on the local
+            tensors), flash_mma exactly 2 x 24 x 2 a step, the step-4
+            checkpoint restored with ``shardings=`` bit for bit and placed as
+            the bundle's ``in_shardings``, ``compressed_psum_mean`` of one
+            step's gradients over the one-rank "data" group equal to the int8
+            round trip; step ms against ``[train]``'s, peak memory, and one
+            profiled step's idle share.
 
 The line before the last is the kernels JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without a card, or outside a checkout, it
@@ -267,7 +277,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     paths.update(vision_phase(torch))
     torch.cuda.empty_cache()
-    paths.update(train_phase(torch))
+    train_paths, train_run = train_phase(torch)
+    paths.update(train_paths)
+    torch.cuda.empty_cache()
+    paths["train_mesh"] = train_mesh_phase(torch, train_run)
 
     for row in rows:
         name = row["name"]
@@ -2824,10 +2837,11 @@ def profile_train_step(torch, bundle, params, opt, batch, calls_per_step: int,
           f"{timed / wall_ms:.3f} of the profiled step's wall")
 
 
-def train_phase(torch) -> dict[str, dict[str, int]]:
+def train_phase(torch) -> tuple[dict[str, dict[str, int]], dict]:
     """vit-l16 at cls_384, full size, through ``launch.train.main`` on the
     card: train, checkpoint, restore, resume; then one profiled step and the
-    parity steps. Returns each counted run's launches."""
+    parity steps. Returns each counted run's launches, and the run's losses,
+    step times and peak memory for ``train_mesh_phase``."""
     import shutil
     import tempfile
 
@@ -2906,7 +2920,127 @@ def train_phase(torch) -> dict[str, dict[str, int]]:
                        cfg.n_layers * bundle.accum, bwd_ms[TRAIN_BWD[0][0]])
     counts16, counts32 = train_parity_phase(torch, second.params, second.opt, batch, bundle)
     print(f"[train] phase {time.perf_counter() - t_phase:.1f} s")
-    return {"train": counts, "train_bf16_parity": counts16, "train_f32_parity": counts32}
+    run = {"losses": losses, "step_s": first.step_s + second.step_s, "median_s": med,
+           "quiet_s": quiet, "peak_gb": peak_gb}
+    return {"train": counts, "train_bf16_parity": counts16, "train_f32_parity": counts32}, run
+
+
+def train_mesh_phase(torch, unmeshed: dict) -> dict[str, int]:
+    """``[train]``'s run on the (1,1) NCCL host mesh (``--mesh``): vit-l16
+    ``cls_384`` under its train profile, params and moments DTensors placed
+    as views, every op through DTensor dispatch, the flash kernel behind the
+    local boundary. Checks the losses against ``unmeshed`` (``[train]``'s),
+    the launches, the sharded checkpoint's restore with ``shardings=`` and
+    ``compressed_psum_mean``; reports step wall, idle share and peak memory.
+    Returns the counted run's launches."""
+    import shutil
+    import tempfile
+
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch import configs
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.data import pipeline
+    from repro_torch.launch import steps, train
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import param
+    from repro_torch.optim import grad_compression as gc
+    from repro_torch.sharding.rules import use_rules
+
+    t_phase = time.perf_counter()
+    arch = configs.get_arch(TRAIN_ARCH)
+    cfg = configs.config_for_shape(arch, arch.shape(TRAIN_SHAPE))
+    mesh = make_host_mesh(device="cuda")
+    bundle = steps.build_bundle(TRAIN_ARCH, TRAIN_SHAPE, mesh)
+    ckdir = tempfile.mkdtemp(prefix="repro_torch_train_mesh_")
+    common = ["--arch", TRAIN_ARCH, "--shape", TRAIN_SHAPE, "--full", "--ckpt-dir", ckdir,
+              "--log-every", "1", "--mesh"]
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        first = train.main(common + ["--steps", str(TRAIN_STEPS),
+                                     "--ckpt-every", str(TRAIN_CKPT_EVERY)])
+        ck = Checkpointer(ckdir)
+        saved = ck.all_steps()
+        t0 = time.perf_counter()
+        restored, at = ck.restore(bundle.abstract_inputs[:2], step=TRAIN_STEPS, device="cuda",
+                                  shardings=bundle.in_shardings[:2])
+        restore_s = time.perf_counter() - t0
+        mine, back = (param.flatten({"0": t[0], "1": t[1]})
+                      for t in ((first.params, first.opt), restored))
+        want = param.flatten({"0": bundle.in_shardings[0], "1": bundle.in_shardings[1]})
+        placed = all(isinstance(t, DTensor) and tuple(t.placements)
+                     == want[k].placements(t.shape) for k, t in back.items())
+        same = all(isinstance(a, DTensor) and a.dtype == back[k].dtype
+                   and torch.equal(a.to_local(), back[k].to_local()) for k, a in mine.items())
+        print(f"[train mesh] checkpoints {saved} (sharded save, rank 0 writes); step {at} "
+              f"restored with shardings= on {tuple(bundle.rules.shape.items())} in "
+              f"{restore_s:.2f} s: {len(mine)} leaves equal bit for bit {same}, placed as "
+              f"in_shardings {placed} {'ok' if same and placed else 'FAIL'}")
+        check(saved == [TRAIN_CKPT_EVERY, TRAIN_STEPS] and at == TRAIN_STEPS and same
+              and placed, "train mesh checkpoint: saved steps, restored values or placements")
+        del restored, back, mine
+        first.params = first.opt = None
+        torch.cuda.empty_cache()
+        second = train.main(common + ["--steps", str(TRAIN_RESUME_STEPS), "--resume"])
+        torch.cuda.synchronize()
+        counts = read_counts()  # the restore between the runs launches no kernel
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    n_steps = TRAIN_STEPS + TRAIN_RESUME_STEPS
+    exp = _expect(flash_attention_mma=2 * cfg.n_layers * bundle.accum * n_steps)
+    losses = first.losses + second.losses
+    ref = unmeshed["losses"]
+    bit_equal = losses == ref
+    worst = max(abs(a - b) / abs(b) for a, b in zip(losses, ref))
+    med = first.median_step_s()
+    quiet = [first.step_s[1], second.step_s[1]]
+    print(f"[train mesh] {TRAIN_ARCH} {TRAIN_SHAPE} full on the (1,1) mesh, profile "
+          f"{arch.train_profile} (accum {bundle.accum}): losses {[round(l, 4) for l in losses]} "
+          f"against [train]'s: {'bit-equal' if bit_equal else f'max rel {worst:.3e}'}; step "
+          f"{med * 1e3:.2f} ms (median after the first; [train] {unmeshed['median_s'] * 1e3:.2f}, "
+          f"{med / unmeshed['median_s']:.2f}x; every step "
+          f"{[round(t * 1e3, 2) for t in first.step_s + second.step_s]} ms; quiet steps "
+          f"{[round(t * 1e3, 2) for t in quiet]} against "
+          f"{[round(t * 1e3, 2) for t in unmeshed['quiet_s']]}), "
+          f"{first.samples_per_step / med:.1f} images/s; peak memory {peak_gb:.3f} GB "
+          f"([train] {unmeshed['peak_gb']:.3f}); launches {_nz(counts)} (implies {_nz(exp)}) "
+          f"{'ok' if counts == exp else 'FAIL'}")
+    check(second.start_step == TRAIN_STEPS and len(losses) == n_steps,
+          "train mesh: resume step or step count")
+    # not bit-equal: held to the bf16 step criterion of train_parity_phase
+    check(bit_equal or worst <= TRAIN_BF16["loss_rel"],
+          f"train mesh: losses {losses} against [train]'s {ref}")
+    check(counts == exp, f"train mesh launches {counts} != {exp}")
+
+    params, opt = second.params, second.opt
+    batch = pipeline.place(train.host_batch(arch, cfg, pipeline.SyntheticData(), n_steps,
+                                            bundle.abstract_inputs[2]), "cuda",
+                           bundle.in_shardings[2])
+    with use_rules(bundle.rules):
+        _, grads = steps.accumulated_grads(bundle.loss_fn, params, batch, opt["step"],
+                                           bundle.accum)
+    t0 = time.perf_counter()
+    mean = gc.compressed_psum_mean(grads, mesh)
+    torch.cuda.synchronize()
+    psum_ms = (time.perf_counter() - t0) * 1e3
+    flat_g, flat_m = param.flatten(grads), param.flatten(mean)
+    exact = all(torch.equal(flat_m[k].to_local(),
+                            gc.int8_decompress(*gc.int8_compress(g.to_local()), g.dtype))
+                and flat_m[k].placements == g.placements for k, g in flat_g.items())
+    print(f"[train mesh] compressed_psum_mean of one step's gradients ({len(flat_g)} leaves, "
+          f"{next(iter(flat_g.values())).dtype}) over the one-rank \"data\" group in "
+          f"{psum_ms:.1f} ms: the int8 round trip bit for bit, placements kept {exact} "
+          f"{'ok' if exact else 'FAIL'}")
+    check(exact, "train mesh: compressed_psum_mean is not the int8 round trip on one rank")
+    del grads, mean, flat_g, flat_m
+    torch.cuda.empty_cache()
+    profile_once(torch, f"train mesh {TRAIN_ARCH} {TRAIN_SHAPE} step",
+                 lambda: bundle.step_fn(params, opt, batch))
+    print(f"[train mesh] phase {time.perf_counter() - t_phase:.1f} s")
+    return counts
 
 
 if __name__ == "__main__":

@@ -26,8 +26,17 @@ not work: the reference's restore reads no index and returns a port bf16
 leaf as its ``uint16`` bits, integers, without an error.
 
 ``restore`` places every leaf on one ``device`` (``cuda`` unless the
-caller passes ``device="cpu"``); the reference's elastic restore onto a mesh
-waits for the training mesh, the next slice of the port (ROADMAP.md queue 1).
+caller passes ``device="cpu"``), or, with ``shardings=`` (a tree of
+``NamedSharding`` matching the target, e.g. a sharded bundle's
+``in_shardings[:2]``), as DTensors on their mesh: the elastic restore. That
+mesh may differ from the one that saved: the files hold global arrays, and
+each rank uploads only its own shard of each (a view of the host array).
+
+On a mesh, ``save`` gathers each sharded (DTensor) leaf to its global value
+(``full_tensor``, a collective every rank joins, on the calling thread); only
+rank 0 of the process group copies it to the host and writes, and a
+``blocking`` save returns on no rank before the checkpoint is committed (a
+barrier after the write).
 """
 from __future__ import annotations
 
@@ -39,16 +48,22 @@ from typing import Any, Mapping
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from repro_torch.runtime.device import resolve_device
+from repro_torch.sharding.rules import NamedSharding, shard_slices, to_global
 
 _SEP = "/"
 
 
 def _paths(tree, prefix: tuple = ()):
     """(path, leaf) in ``jax.tree_util.tree_leaves_with_path`` order: dict
-    keys sorted, tuple and list items by index."""
-    if isinstance(tree, Mapping):
+    keys sorted, tuple and list items by index; a ``NamedSharding`` is a
+    leaf."""
+    if isinstance(tree, NamedSharding):
+        yield _SEP.join(prefix), tree
+    elif isinstance(tree, Mapping):
         for k in sorted(tree):
             yield from _paths(tree[k], prefix + (str(k),))
     elif isinstance(tree, (tuple, list)):
@@ -85,8 +100,8 @@ def _dtype_name(dtype: torch.dtype) -> str:
 
 
 def _to_host(t: torch.Tensor) -> np.ndarray:
-    """A leaf's values as numpy; bf16 as its uint16 bits."""
-    t = t.detach().to("cpu").contiguous()
+    """A leaf's (global) values as numpy; bf16 as its uint16 bits."""
+    t = to_global(t.detach()).to("cpu").contiguous()
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(np.uint16)
     return t.numpy()
@@ -111,11 +126,18 @@ class Checkpointer:
     def save(self, step: int, tree, *, blocking: bool = False) -> pathlib.Path:
         self.wait()  # one in-flight save at a time
         flat = _flatten(tree)
-        host = {k: _to_host(v) for k, v in flat.items()}  # device->host copy
+        ranks = dist.get_world_size() if dist.is_initialized() else 1
+        path = self.dir / f"step_{step:08d}"
+        if ranks > 1 and dist.get_rank() != 0:
+            for v in flat.values():
+                to_global(v.detach())  # joins rank 0's gather; no host copy here
+            if blocking:
+                dist.barrier()  # rank 0 has committed
+            return path
+        host = {k: _to_host(v) for k, v in flat.items()}  # gathers, device->host copy
         keys = {k: {"shape": list(v.shape), "dtype": _dtype_name(v.dtype)}
                 for k, v in flat.items()}
         structure = _structure(tree)
-        path = self.dir / f"step_{step:08d}"
 
         def _write():
             tmp = path.with_suffix(".tmp")
@@ -133,6 +155,8 @@ class Checkpointer:
 
         if blocking:
             _write()
+            if ranks > 1:
+                dist.barrier()
         else:
             def _run():
                 try:
@@ -169,10 +193,13 @@ class Checkpointer:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, target_tree, step: int | None = None, device=None):
+    def restore(self, target_tree, step: int | None = None, device=None, shardings=None):
         """Restore into the structure of ``target_tree`` (tensors, meta
         tensors included, or anything with a ``shape``) on ``device``.
-        Leaves keep the checkpoint's dtype. Returns (tree, step)."""
+        Leaves keep the checkpoint's dtype. ``shardings``: a matching tree
+        of ``NamedSharding``; each leaf then comes back as a DTensor placed
+        by its sharding on its mesh (this rank's shard only). Returns
+        (tree, step)."""
         device = resolve_device(device)
         step = step if step is not None else self.latest_step()
         if step is None:
@@ -180,6 +207,7 @@ class Checkpointer:
         path = self.dir / f"step_{step:08d}"
         index = json.loads((path / "index.json").read_text())["keys"]
         flat_target = _flatten(target_tree)
+        flat_sh = _flatten(shardings) if shardings is not None else None
         with np.load(path / "arrays.npz") as data:
             missing = set(flat_target) - set(data.files)
             if missing:
@@ -189,5 +217,13 @@ class Checkpointer:
                 arr = data[k]
                 if tuple(arr.shape) != tuple(tgt.shape):
                     raise ValueError(f"{k}: ckpt shape {arr.shape} != target {tuple(tgt.shape)}")
-                restored[k] = _from_host(arr, index[k]["dtype"], device)
+                if flat_sh is None:
+                    restored[k] = _from_host(arr, index[k]["dtype"], device)
+                    continue
+                sh = flat_sh[k]
+                placements = sh.placements(arr.shape)
+                local = _from_host(arr[shard_slices(arr.shape, sh.mesh, placements)],
+                                   index[k]["dtype"], device)
+                restored[k] = DTensor.from_local(local, sh.mesh, list(placements),
+                                                 run_check=False)
         return _rebuild(target_tree, restored), step

@@ -4,8 +4,10 @@ Deterministic per-(seed, step) host batches for every family (classification
 images, LM token streams, diffusion latents, flux's text embeddings): the
 same numpy generator, ``default_rng((seed << 32) ^ step)``, so the port's
 batches equal the reference's bit for bit. ``place`` copies a host batch to
-one device. The reference's multi-host branch (each host uploads its shard)
-waits for the training mesh, the next slice of the port (ROADMAP.md queue 1).
+one device, or, given a sharded bundle's batch shardings, places it on their
+mesh: each rank uploads only its own shard, a view of the host array taken by
+the shardings' placements, and wraps it as a DTensor (the counterpart of the
+reference's ``make_array_from_callback``, which its multi-host branch uses).
 
 The generator is stateless in the step index, so a resumed run continues
 the stream exactly.
@@ -16,8 +18,10 @@ import dataclasses
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.runtime.device import resolve_device
+from repro_torch.sharding.rules import shard_slices
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,8 +64,21 @@ class SyntheticData:
                 "vec": rng.standard_normal((batch, clip_dim), dtype=np.float32)}
 
 
-def place(batch: dict, device=None) -> dict:
+def place(batch: dict, device=None, shardings: dict | None = None) -> dict:
     """Host batch -> tensors on ``device`` (``cuda`` unless the caller passes
-    ``device="cpu"``; raises if no card is there), dtypes kept."""
+    ``device="cpu"``; raises if no card is there), dtypes kept. With
+    ``shardings`` (a dict of ``NamedSharding`` by key, a sharded bundle's
+    ``in_shardings[2]``) every leaf is a DTensor on their mesh holding this
+    rank's shard, the only part of the host array it copies."""
     device = resolve_device(device)
-    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device) for k, v in batch.items()}
+    if shardings is None:
+        return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+                for k, v in batch.items()}
+    out = {}
+    for k, v in batch.items():
+        sh = shardings[k]
+        placements = sh.placements(v.shape)
+        local = np.ascontiguousarray(v[shard_slices(v.shape, sh.mesh, placements)])
+        out[k] = DTensor.from_local(torch.from_numpy(local).to(device), sh.mesh,
+                                    list(placements), run_check=False)
+    return out

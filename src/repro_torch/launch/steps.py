@@ -1,4 +1,4 @@
-"""Step builders, PyTorch port of ``repro.launch.steps`` on one device.
+"""Step builders, PyTorch port of ``repro.launch.steps``.
 
 One ``StepBundle`` per (architecture x shape): the step function, its
 abstract inputs (meta-device tensors: shapes and dtypes, no memory), the
@@ -12,14 +12,20 @@ f32 in order and divided by ``accum``, then AdamW (``optim.adamw``, in
 place). Params enter as plain tensors; the step differentiates detached
 aliases of them, so the caller's tensors never require grad.
 
-With a ``mesh`` (a ``DeviceMesh``), a serving bundle (serve, prefill,
-decode, gen) builds its rules from the architecture's ``serve_profile``:
-``in_shardings`` / ``out_shardings`` are trees of ``spec_for`` specs
-matching the step's arguments and results, ``place_inputs`` places
-concrete arguments by them (each rank's slice as a view), and the step runs
-under ``use_rules``. A train shape with a mesh raises: the sharded train
-step comes with the training mesh, the next slice of the port (ROADMAP.md
-queue 1).
+With a ``mesh`` (a ``DeviceMesh``), a bundle builds its rules from the
+architecture's profile (``train_profile`` for a train shape, else
+``serve_profile``): ``in_shardings`` / ``out_shardings`` are trees of
+``NamedSharding`` (a ``spec_for`` spec on the mesh) matching the step's
+arguments and results, ``place_inputs`` places concrete arguments by them
+(each rank's slice as a view), and the step runs under ``use_rules``. A
+sharded train step takes ``(params, opt, batch)`` placed as ``(params'
+specs, {m, v: params' specs, step: replicated}, the family's batch axes)``;
+its gradients come back in their params' placements, the f32 accumulator of
+microbatches takes them too, a microbatch is the reference's (rows
+``i*B/accum`` to ``(i+1)*B/accum`` of the global batch, each rank holding
+its share, moved there by one all-to-all a step), and the metrics are
+replicated. ``pick_accum`` sees the mesh's data-parallel extent
+(``_dp_size``).
 Not ported: ``donate_argnums`` and ``lower``/``jitted`` (ahead-of-time
 compilation, item 7), nor ``build_bundle``'s ``config_patch``,
 ``janus_alpha`` and ``optimizer``, whose only caller is the hill-climb tool
@@ -28,14 +34,18 @@ compilation, item 7), nor ``build_bundle``'s ``config_patch``,
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Callable, Mapping
 
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, Shard
 
 from repro_torch.configs import config_for_shape, get_arch
 from repro_torch.configs.base import ShapeSpec
 from repro_torch.models import dit as dit_lib
 from repro_torch.models import flux as flux_lib
+from repro_torch.models import layers
 from repro_torch.models import lm as lm_lib
 from repro_torch.models import param as param_lib
 from repro_torch.models import resnet as resnet_lib
@@ -59,9 +69,9 @@ class StepBundle:
     accum: int = 1           # microbatches of a train step
     notes: str = ""
     loss_fn: Callable | None = None  # a train step's loss(params, batch, step)
-    in_shardings: Any = None     # spec trees of the arguments (with a mesh)
-    out_shardings: Any = None    # spec trees of the results (with a mesh)
-    rules: Any = None            # the serve profile's Rules (with a mesh)
+    in_shardings: Any = None     # NamedSharding trees of the arguments (with a mesh)
+    out_shardings: Any = None    # NamedSharding trees of the results (with a mesh)
+    rules: Any = None            # the profile's Rules (with a mesh)
 
 
 def place_inputs(bundle: StepBundle, *args) -> tuple:
@@ -167,16 +177,66 @@ def resnet_fwd_flops(cfg: resnet_lib.ResNetConfig, batch: int) -> float:
 # ---------------------------------------------------------------------------
 
 
+def _like(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """Gradient ``g`` in its param ``p``'s placements (a pending sum over
+    the batch is reduced, onto the param's shards where it is sharded)."""
+    if isinstance(p, DTensor):
+        return rules_lib.redistribute(g, p.placements)
+    return g
+
+
 def value_and_grad(loss_fn: Callable, params: dict, *args):
     """(loss, grads): ``loss_fn(params, *args)`` and its gradient in each
-    param's dtype, zeros for a leaf the loss does not read (as JAX gives)."""
+    param's dtype and placements, zeros for a leaf the loss does not read
+    (as JAX gives)."""
     flat = param_lib.flatten(params)
     live = {k: v.detach().requires_grad_() for k, v in flat.items()}
     with torch.enable_grad():
         loss = loss_fn(param_lib.unflatten(live), *args)
         grads = torch.autograd.grad(loss, list(live.values()), allow_unused=True,
                                     materialize_grads=True)
-    return loss.detach(), param_lib.unflatten(dict(zip(live, grads)))
+    grads = [_like(g, p) for g, p in zip(grads, flat.values())]
+    return rules_lib.replicated(loss.detach()), param_lib.unflatten(dict(zip(live, grads)))
+
+
+def _rows_by_microbatch(local: torch.Tensor, accum: int, n: int, s: int, group) -> torch.Tensor:
+    """Rank ``s`` of the ``n`` splitting the batch holds global rows
+    ``s*B/n`` on (``local``); one ``all_to_all_single`` in ``group`` returns
+    its shares of the ``accum`` microbatches in order, ``B/(n*accum)`` rows
+    each (the share of microbatch ``i`` is global block ``i*n + s``)."""
+    k = local.shape[0] // accum
+    dest = [(s * accum + j) % n for j in range(accum)]  # block s*accum+j's rank
+    order = sorted(range(accum), key=lambda j: (dest[j], j))
+    send = local.reshape(accum, k, *local.shape[1:])[order].reshape(local.shape).contiguous()
+    recv = [k * sum((t * accum + j) % n == s for j in range(accum)) for t in range(n)]
+    out = torch.empty_like(send)
+    dist.all_to_all_single(out, send, recv, [k * dest.count(r) for r in range(n)], group=group)
+    return out
+
+
+def _microbatches(x: torch.Tensor, accum: int) -> list[torch.Tensor]:
+    """The ``accum`` microbatches of the global batch leaf ``x``, microbatch
+    ``i`` rows ``i*B/accum`` to ``(i+1)*B/accum``. A DTensor's come back in
+    its placements, each rank holding its share: where one mesh dim splits
+    the batch evenly, rows move between its ranks in one all-to-all
+    (``_rows_by_microbatch``) and no rank holds the whole batch; where
+    several do (a "pod" and "data" mesh), the batch is gathered."""
+    if not isinstance(x, DTensor):
+        return list(x.reshape(accum, x.shape[0] // accum, *x.shape[1:]))
+    mesh = x.device_mesh
+    dims = [d for d, pl in enumerate(x.placements) if isinstance(pl, Shard) and pl.dim == 0]
+    if len(dims) > 1 or x.shape[0] % (accum * math.prod(mesh.size(d) for d in dims)):
+        g = rules_lib.to_global(x)
+        m = g.shape[0] // accum
+        return [rules_lib.place(g[i * m:(i + 1) * m], mesh, x.placements) for i in range(accum)]
+    local = x.to_local()
+    if dims and mesh.size(dims[0]) > 1:
+        d = dims[0]
+        local = _rows_by_microbatch(local, accum, mesh.size(d), mesh.get_local_rank(d),
+                                    mesh.get_group(d))
+    k = local.shape[0] // accum
+    return [DTensor.from_local(local[i * k:(i + 1) * k], mesh, x.placements, run_check=False)
+            for i in range(accum)]
 
 
 def accumulated_grads(loss_fn: Callable, params: dict, batch: dict, step: torch.Tensor,
@@ -187,13 +247,12 @@ def accumulated_grads(loss_fn: Callable, params: dict, batch: dict, step: torch.
     the mean of theirs; with 1, the grads keep the params' dtype."""
     if accum == 1:
         return value_and_grad(loss_fn, params, batch, step)
-    gsum = param_lib.tree_map(
-        lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device), params)
+    gsum = param_lib.tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32), params)
     flat_sum = param_lib.flatten(gsum)
     losses = []
+    mbs = {k: _microbatches(v, accum) for k, v in batch.items()}
     for i in range(accum):
-        mb = {k: v.reshape(accum, v.shape[0] // accum, *v.shape[1:])[i]
-              for k, v in batch.items()}
+        mb = {k: v[i] for k, v in mbs.items()}
         loss, grads = value_and_grad(loss_fn, params, mb, step)
         for key, g in param_lib.flatten(grads).items():
             flat_sum[key].add_(g)
@@ -204,15 +263,23 @@ def accumulated_grads(loss_fn: Callable, params: dict, batch: dict, step: torch.
     return torch.mean(torch.stack(losses)), gsum
 
 
-def _train_wrap(loss_fn: Callable, ocfg: adamw.AdamWConfig, accum: int = 1):
+def _train_wrap(loss_fn: Callable, ocfg: adamw.AdamWConfig, accum: int = 1, rules=None):
     """Train step with optional microbatch gradient accumulation
-    (``accumulated_grads``), then AdamW. ``step(params, opt, batch) ->
-    (params, opt, metrics)``, params and opt updated in place."""
+    (``accumulated_grads``), then AdamW, all under ``use_rules(rules)``.
+    ``step(params, opt, batch) -> (params, opt, metrics)``, params and opt
+    updated in place."""
     def step(params, opt, batch):
-        loss, grads = accumulated_grads(loss_fn, params, batch, opt["step"], accum)
-        params, opt, metrics = adamw.apply_updates(ocfg, params, grads, opt)
+        with rules_lib.use_rules(rules):
+            loss, grads = accumulated_grads(loss_fn, params, batch, opt["step"], accum)
+            params, opt, metrics = adamw.apply_updates(ocfg, params, grads, opt)
         return params, opt, {"loss": loss, **metrics}
     return step
+
+
+def _dp_size(mesh) -> int:
+    """The data-parallel extent: the product of the "pod" and "data" axes."""
+    shape = rules_lib.mesh_shape(mesh)
+    return math.prod(shape.get(a, 1) for a in ("pod", "data"))
 
 
 def pick_accum(global_batch: int, act_bytes_per_sample: float, dp: int,
@@ -228,6 +295,9 @@ def pick_accum(global_batch: int, act_bytes_per_sample: float, dp: int,
     return accum
 
 
+_VISION_AXES = {"images": ("batch", None, None, None), "labels": ("batch",)}
+
+
 def _vision_batch(shape: ShapeSpec) -> dict:
     return {"images": _meta((shape.batch, shape.img_res, shape.img_res, 3)),
             "labels": _meta((shape.batch,), torch.int32)}
@@ -237,13 +307,18 @@ def _ce_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Mean cross entropy in f32."""
     lf = logits.float()
     lse = torch.logsumexp(lf, dim=-1)
-    true = torch.gather(lf, -1, labels.long()[..., None])[..., 0]
+    true = layers.take_labels(lf, labels)
     return torch.mean(lse - true)
 
 
 def _step_generator(device: torch.device, step: torch.Tensor) -> torch.Generator:
     """The diffusion losses' draws, seeded by the optimizer step (the
-    reference folds the step into PRNGKey(0)); one host read of the step."""
+    reference folds the step into PRNGKey(0)); one host read of the step.
+    On a mesh every rank draws the global noise from it (plain tensors of
+    the batch's global shape, which the rules take as replicated), so each
+    sample gets the noise it gets on one device."""
+    if isinstance(step, DTensor):
+        step = step.to_local()
     return torch.Generator(device=device).manual_seed(int(step))
 
 
@@ -253,17 +328,19 @@ def _sampler_generator(device: torch.device) -> torch.Generator:
 
 
 class _Sharded:
-    """A serving bundle's sharding on the rules' mesh: spec trees, the step
-    run under the rules, and the bundle; without rules, no specs and the
-    step as it is."""
+    """A bundle's sharding on the rules' mesh: spec trees, the step run
+    under the rules, and the bundle; without rules, no specs and the step
+    as it is."""
 
     def __init__(self, rules, specs_tree):
         self.rules = rules
         self.params = None if rules is None else param_lib.tree_map(
-            lambda s: rules.spec_for(s.shape, s.axes), specs_tree)
+            lambda s: rules.named(rules.spec_for(s.shape, s.axes)), specs_tree)
 
     def spec(self, shape, axes):
-        return None if self.rules is None else self.rules.spec_for(tuple(shape), tuple(axes))
+        if self.rules is None:
+            return None
+        return self.rules.named(self.rules.spec_for(tuple(shape), tuple(axes)))
 
     def tree(self, tree, axes):
         """Specs of a dict (or list of dicts) of tensors; ``axes`` one tuple
@@ -284,30 +361,40 @@ class _Sharded:
         return StepBundle(name, run, inputs, flops, in_shardings=in_sh, out_shardings=out_sh,
                           rules=rules, **kw)
 
+    def train(self, name, loss_fn, accum, inputs, baxes, flops, **kw) -> StepBundle:
+        """A train bundle: ``_train_wrap`` under the rules; on a mesh the
+        params, moments and batch placed as the reference's
+        ``(psh, osh, bsh)``, the metrics replicated."""
+        step = _train_wrap(loss_fn, adamw.AdamWConfig(), accum, self.rules)
+        kw.update(accum=accum, loss_fn=loss_fn)
+        if self.rules is None:
+            return StepBundle(name, step, inputs, flops, **kw)
+        rep = self.rules.named(())
+        osh = {"m": self.params, "v": self.params, "step": rep}
+        metrics = {k: rep for k in ("loss", "grad_norm", "lr")}
+        return StepBundle(name, step, inputs, flops,
+                          in_shardings=(self.params, osh, self.tree(inputs[2], baxes)),
+                          out_shardings=(self.params, osh, metrics), rules=self.rules, **kw)
+
 
 def build_bundle(arch_name: str, shape_name: str, mesh=None, *,
                  smoke: bool = False) -> StepBundle:
-    """The bundle of ``arch_name`` at ``shape_name``; with ``mesh`` (serving
-    shapes only) a sharded bundle (see the module docstring)."""
+    """The bundle of ``arch_name`` at ``shape_name``; with ``mesh`` a sharded
+    bundle (see the module docstring)."""
     arch = get_arch(arch_name)
     shape = arch.shape(shape_name)
     if shape.skip_reason and not smoke:
         raise SkipShape(arch_name, shape_name, shape.skip_reason)
     cfg = config_for_shape(arch, shape, smoke=smoke)
     train = shape.kind == "train"
-    if train and mesh is not None:
-        raise NotImplementedError(
-            f"build_bundle({arch_name!r}, {shape_name!r}, mesh=...): the sharded train "
-            "step is not ported yet; it comes with the training mesh, the next slice "
-            "of the port (ROADMAP.md queue 1). Pass mesh=None for one device")
     specs_tree = _specs_for(arch.family, cfg)
-    rules = None if mesh is None else rules_lib.make_rules(arch.serve_profile, mesh)
+    profile = arch.train_profile if train else arch.serve_profile
+    rules = None if mesh is None else rules_lib.make_rules(profile, mesh)
     sharded = _Sharded(rules, specs_tree)
     aparams = param_lib.abstract_params(specs_tree, dtype=getattr(cfg, "dtype", None))
-    ocfg = adamw.AdamWConfig()
     n_params = param_lib.param_count(specs_tree)
     aopt = adamw.init_state(aparams) if train else None
-    dp = 1
+    dp = 1 if mesh is None else _dp_size(mesh)
     name = f"{arch_name}/{shape_name}" + ("/smoke" if smoke else "")
 
     # ----------------------------------------------------- LM family
@@ -325,9 +412,10 @@ def build_bundle(arch_name: str, shape_name: str, mesh=None, *,
                 return loss + cfg.aux_loss_coef * aux
 
             accum = 1 if smoke else pick_accum(gb, seq * cfg.d_model * 2, dp)
-            return StepBundle(name, _train_wrap(loss_fn, ocfg, accum), (aparams, aopt, batch),
-                              transformer_model_flops(active, gb * seq, True),
-                              accum=accum, notes=f"accum={accum}", loss_fn=loss_fn)
+            return sharded.train(name, loss_fn, accum, (aparams, aopt, batch),
+                                 ("batch", "seq"),
+                                 transformer_model_flops(active, gb * seq, True),
+                                 notes=f"accum={accum}")
 
         if shape.kind == "prefill":
             if smoke:
@@ -387,16 +475,14 @@ def build_bundle(arch_name: str, shape_name: str, mesh=None, *,
                 d = cfg.d_model if arch.family == "vit" else cfg.dims[0]
                 act_b = (cfg.img_res // cfg.patch) ** 2 * d * 2
             accum = 1 if smoke else pick_accum(sh.batch, act_b, dp)
-            return StepBundle(name, _train_wrap(loss_fn, ocfg, accum), (aparams, aopt, batch),
-                              mflops, accum=accum, notes=f"accum={accum}", loss_fn=loss_fn)
+            return sharded.train(name, loss_fn, accum, (aparams, aopt, batch), _VISION_AXES,
+                                 mflops, notes=f"accum={accum}")
 
         def step(params, batch):
             return fwd(params, batch["images"])
 
         return sharded.bundle(
-            name, step, (aparams, batch),
-            (sharded.params, sharded.tree(batch, {"images": ("batch", None, None, None),
-                                                  "labels": ("batch",)})),
+            name, step, (aparams, batch), (sharded.params, sharded.tree(batch, _VISION_AXES)),
             sharded.spec((sh.batch, cfg.n_classes), ("batch", "act_vocab")), mflops)
 
     # ----------------------------------------------------- diffusion families
@@ -412,9 +498,10 @@ def build_bundle(arch_name: str, shape_name: str, mesh=None, *,
                 gen = _step_generator(b["latents"].device, step)
                 return diffusion.dit_loss(p, cfg, b["latents"], b["labels"], gen)
 
-            tokens = bsz * cfg.num_tokens
-            return StepBundle(name, _train_wrap(loss_fn, ocfg), (aparams, aopt, batch),
-                              transformer_model_flops(n_params, tokens, True), loss_fn=loss_fn)
+            tokens = bsz * cfg.num_tokens  # DiT-S is tiny: accum=1
+            return sharded.train(name, loss_fn, 1, (aparams, aopt, batch),
+                                 {"latents": ("batch", None, None, None), "labels": ("batch",)},
+                                 transformer_model_flops(n_params, tokens, True))
 
         batch = {"labels": _meta((bsz,), torch.int32)}
 
@@ -447,9 +534,10 @@ def build_bundle(arch_name: str, shape_name: str, mesh=None, *,
 
             act_b = (cfg.n_img_tokens + cfg.txt_len) * cfg.d_model * 2
             accum = 1 if smoke else pick_accum(bsz, act_b, dp)
-            return StepBundle(name, _train_wrap(loss_fn, ocfg, accum), (aparams, aopt, batch),
-                              flux_fwd_flops(cfg, bsz) * 3, accum=accum,
-                              notes=f"accum={accum}", loss_fn=loss_fn)
+            return sharded.train(name, loss_fn, accum, (aparams, aopt, batch),
+                                 {"latents": ("batch", None, None, None),
+                                  "txt": ("batch", None, None), "vec": ("batch", None)},
+                                 flux_fwd_flops(cfg, bsz) * 3, notes=f"accum={accum}")
 
         batch = {"txt": txt, "vec": vec}
 

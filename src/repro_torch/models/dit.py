@@ -97,7 +97,10 @@ def specs(cfg: DiTConfig) -> dict:
 
 def unpatchify(cfg, x: torch.Tensor) -> torch.Tensor:
     """[B, grid*grid, p*p*C] -> [B, grid*p, grid*p, C]: ``patchify``'s
-    inverse (``patchify`` is the ViT's, on the latents)."""
+    inverse (``patchify`` is the ViT's, on the latents). On DTensors the
+    patch dim is gathered first (and its gradient constrained alike): torch
+    2.11 cannot view a split of it across the patch rows."""
+    x = constrain(x, ("batch", "seq", None))
     b = x.shape[0]
     g, p, c = cfg.grid, cfg.patch, cfg.latent_channels
     x = x.reshape(b, g, g, p, p, c).permute(0, 1, 3, 2, 4, 5)

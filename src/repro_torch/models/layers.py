@@ -17,11 +17,11 @@ import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint
 
-from torch.distributed.tensor import DTensor, Shard
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.kernels import ops
 from repro_torch.models.param import ParamSpec
-from repro_torch.sharding.rules import local_part
+from repro_torch.sharding.rules import local_part, replicated, run_local
 
 # ---------------------------------------------------------------------------
 # specs
@@ -158,11 +158,27 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0)
 # ---------------------------------------------------------------------------
 
 
+def _whole_heads(y: torch.Tensor, n: int) -> torch.Tensor:
+    """``y`` [..., n * head_dim] with no mesh dim splitting its last dim
+    into parts that are not whole heads: where ``n`` does not divide by a
+    mesh dim sharding it, that dim is gathered (the weight divides, the
+    heads do not; XLA splits inside a head for the reference, DTensor cannot
+    view such a split as [..., n, head_dim])."""
+    if not isinstance(y, DTensor):
+        return y
+    last = y.ndim - 1
+    want = [Replicate() if isinstance(pl, Shard) and pl.dim == last
+            and n % y.device_mesh.size(i) else pl for i, pl in enumerate(y.placements)]
+    if want == list(y.placements):
+        return y
+    return y.redistribute(y.device_mesh, want)
+
+
 def _proj(p: dict, name: str, x: torch.Tensor, n: int, head_dim: int) -> torch.Tensor:
     y = x @ p[f"w{name}"].to(x.dtype)
     if f"b{name}" in p:
         y = y + p[f"b{name}"].to(y.dtype)
-    return y.reshape(*y.shape[:-1], n, head_dim)
+    return _whole_heads(y, n).reshape(*y.shape[:-1], n, head_dim)
 
 
 def _qkv_proj(p: dict, x: torch.Tensor, n_heads: int, n_kv: int, head_dim: int):
@@ -331,9 +347,30 @@ def swiglu(p: dict, x: torch.Tensor) -> torch.Tensor:
 
 
 def embed(p: dict, ids: torch.Tensor) -> torch.Tensor:
-    """Rows of the table for ``ids`` (int32 or int64) -> [*ids.shape, d]."""
+    """Rows of the table for ``ids`` (int32 or int64) -> [*ids.shape, d].
+    On DTensors behind the local boundary: the table gathered whole (its
+    vocab and embed dims), the ids split by batch. DTensor's own lookup
+    fails under autograd on a sharded table: its ``index_select`` backward
+    in torch 2.11, its masked ``embedding`` on a 2-D mesh in 2.13."""
     table = p["table"]
-    return torch.index_select(table, 0, ids.reshape(-1)).reshape(*ids.shape, table.shape[1])
+    if isinstance(table, DTensor):
+        table = replicated(table)
+    roles = ("batch",) + (None,) * (ids.dim() - 1)
+
+    def lookup(t, i):
+        return torch.index_select(t, 0, i.reshape(-1)).reshape(*i.shape, t.shape[1])
+    return run_local("embed", lookup, (table, ids), ((None, None), roles), roles + (None,))
+
+
+def take_labels(x: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """``x[..., labels]`` row by row: x [..., V], integer labels [...]. On a
+    DTensor a masked sum rather than a gather, so that it runs on logits
+    sharded on the vocab dim (each rank sums its own slice; the value is
+    exact, one term and zeros); on a plain tensor the gather."""
+    if not isinstance(x, DTensor):
+        return torch.gather(x, -1, labels.long()[..., None])[..., 0]
+    hit = torch.arange(x.shape[-1], device=labels.device) == labels[..., None].long()
+    return torch.sum(torch.where(hit, x, 0.0), dim=-1)
 
 
 def unembed(p: dict, x: torch.Tensor) -> torch.Tensor:

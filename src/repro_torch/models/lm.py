@@ -170,7 +170,7 @@ def lm_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Next-token cross entropy; logits [B, S, V], labels [B, S] (already
     shifted)."""
     logp = torch.log_softmax(logits.float(), dim=-1)
-    ll = torch.gather(logp, -1, labels.long()[..., None])[..., 0]
+    ll = L.take_labels(logp, labels)
     return -ll.mean()
 
 

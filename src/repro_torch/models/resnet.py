@@ -76,12 +76,14 @@ def conv(p: dict, x: torch.Tensor, stride: int = 1) -> torch.Tensor:
     """x [B, H, W, Cin] (NHWC) * HWIO kernel, SAME padding -> [B, H', W', Cout].
     On DTensors it runs behind the local boundary (DTensor's convolution
     takes only some shardings): batch and output channels may be sharded,
-    input channels not."""
+    input channels not, so a channel-sharded input (the previous conv's
+    output) is gathered first, as XLA does for the reference."""
     def local(x, w):
         w = w.to(x.dtype)
         xc, pad = _pad_nchw(x.permute(0, 3, 1, 2), w.shape[0], stride)
         y = F.conv2d(xc, w.permute(3, 2, 0, 1), stride=stride, padding=pad)
         return y.permute(0, 2, 3, 1)
+    x = constrain(x, ("batch", "act_spatial", None, None))  # input channels gathered
     return run_local("conv", local, (x, p["w"]),
                      (("batch", None, None, None), (None, None, None, "channels")), _NHWC)
 

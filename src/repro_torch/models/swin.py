@@ -138,7 +138,6 @@ def _roll(x: torch.Tensor, shift: int) -> torch.Tensor:
 def _win_attention(bp: dict, cfg: SwinConfig, x: torch.Tensor, heads: int,
                    shift: bool, hw: int) -> torch.Tensor:
     """Windowed (optionally shifted) attention over x [B, hw, hw, C]."""
-    b = x.shape[0]
     ws = cfg.window
     n = ws * ws
     rel_idx, mask = _tables(ws, hw, x.device)
@@ -148,28 +147,38 @@ def _win_attention(bp: dict, cfg: SwinConfig, x: torch.Tensor, heads: int,
     h = L.layernorm(bp["ln1"], x)
     if shift:
         h = _roll(h, -sh)
-    win = _window_partition(h, ws)  # [B*nW, n, C]
-    dim = win.shape[-1]
+    dim = h.shape[-1]
     hd = dim // heads
-    q, k, v = (L._proj(bp["attn"], name, win, heads, hd).transpose(1, 2) for name in "qkv")
+    n_win = (hw // ws) ** 2
+
+    # windows are independent per image, and heads per head: on DTensors
+    # the partition, the attention and the reverse run behind the local
+    # boundary (DTensor cannot flatten the head-sharded [B*nW, H] dims, and
+    # its backward would split one image's windows across ranks), the
+    # projections outside it
+    win = run_local("swin window partition", lambda t: _window_partition(t, ws), (h,),
+                    (("batch", None, None, None),), ("batch", None, None))  # [B*nW, n, C]
+    q, k, v = (L._proj(bp["attn"], name, win, heads, hd) for name in "qkv")  # [B*nW, n, H, hd]
 
     def core(q, k, v, rel_bias):
+        q, k, v = (t.transpose(1, 2) for t in (q, k, v))
         scores = torch.matmul(q, k.transpose(-1, -2)).float() / math.sqrt(hd)  # [B*nW, H, n, n]
         scores = scores + rel_bias[None].float()
         if shift:
             m = mask.repeat(q.shape[0] // mask.shape[0], 1, 1)[:, None]  # [B*nW, 1, n, n]
             scores = torch.where(m, scores, torch.full_like(scores, -1e30))
         w = torch.softmax(scores, dim=-1).to(x.dtype)
-        return torch.matmul(w, v)
+        out = torch.matmul(w, v)
+        return out.transpose(1, 2).reshape(out.shape[0], n, out.shape[1] * hd)
 
-    # windows and heads are independent: on DTensors, behind the local boundary
-    # (DTensor cannot flatten the head-sharded [B*nW, H] dims of the matmuls)
-    rows = ("batch", "heads", None, None)
+    rows = ("batch", None, "heads", None)
     out = run_local("swin window attention", core, (q, k, v, rel_bias),
-                    (rows, rows, rows, ("heads", None, None)), rows)
-    out = out.transpose(1, 2).reshape(win.shape[0], n, dim)
+                    (rows, rows, rows, ("heads", None, None)), ("batch", None, "heads"))
     out = out @ bp["attn"]["wo"].to(out.dtype) + bp["attn"]["bo"].to(x.dtype)
-    out = _window_reverse(out, ws, b, hw, hw)
+    out = run_local("swin window reverse",
+                    lambda t: _window_reverse(t, ws, t.shape[0] // n_win, hw, hw), (out,),
+                    (("batch", None, None),), ("batch", None, None, None))
+    out = constrain(out, ("batch", None, None, "act_embed"))  # and its gradient
     if shift:
         out = _roll(out, sh)
     return out
@@ -177,6 +186,11 @@ def _win_attention(bp: dict, cfg: SwinConfig, x: torch.Tensor, heads: int,
 
 def _block(bp: dict, cfg: SwinConfig, x: torch.Tensor, heads: int, shift: bool,
            hw: int) -> torch.Tensor:
+    # on DTensors, the residual enters each block replicated but for the
+    # batch (the reference constrains it once a stage and leaves the rest to
+    # XLA; DTensor would carry a spatial or batch split on "model" into the
+    # roll and the windows, which treat neither independently of the heads)
+    x = constrain(x, ("batch", None, None, "act_embed"))
     x = x + _win_attention(bp, cfg, x, heads, shift, hw)
     return x + L.mlp(bp["mlp"], L.layernorm(bp["ln2"], x))
 
@@ -200,6 +214,7 @@ def forward(params: dict, cfg: SwinConfig, images: torch.Tensor) -> torch.Tensor
             # patch merging: 2x2 neighbourhoods -> 4C -> proj to the next dim
             x = x.reshape(b, hw // 2, 2, hw // 2, 2, cfg.dims[i])
             x = x.permute(0, 1, 3, 2, 4, 5).reshape(b, hw // 2, hw // 2, 4 * cfg.dims[i])
+            x = constrain(x, ("batch", None, None, "act_embed"))  # its gradient, on DTensors
             x = L.linear(params[f"merge{i}"]["proj"], L.layernorm(params[f"merge{i}"]["ln"], x))
             hw //= 2
     x = L.layernorm(params["norm"], x)

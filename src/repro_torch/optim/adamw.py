@@ -14,8 +14,11 @@ Numerics kept from the reference:
 Unlike the reference, which returns new arrays, ``apply_updates`` runs under
 ``torch.no_grad()`` and updates params, ``m`` and ``v`` IN PLACE (a full
 ViT-L/16 step would otherwise hold a second copy of 3 GB of state), and
-returns the same objects. ``abstract_state`` is ``init_state`` on
-``device="meta"``.
+returns the same objects. On a mesh (DTensor leaves, under ``use_rules``) a
+grad, its param and its moments share one placement, so every update is
+elementwise on each rank's shard: nothing is gathered, and each leaf keeps
+its placement; the scalars (step, lr, clip) are replicated.
+``abstract_state`` is ``init_state`` on ``device="meta"``.
 """
 from __future__ import annotations
 
@@ -26,6 +29,7 @@ from typing import Mapping
 import torch
 
 from repro_torch.models.param import flatten, tree_map
+from repro_torch.sharding.rules import replicated
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,10 +76,12 @@ def leaves(tree) -> list[torch.Tensor]:
 
 
 def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum of every leaf's f32 squared sum, f32 0-d."""
+    """sqrt of the sum of every leaf's f32 squared sum, f32 0-d. A sharded
+    (DTensor) leaf's sum is reduced across its ranks before it is added, so
+    on a mesh the norm is a replicated 0-d DTensor, the same on every rank."""
     total = None
     for x in leaves(tree):
-        sq = torch.sum(torch.square(x.float()))
+        sq = replicated(torch.sum(torch.square(x.float())))
         total = sq if total is None else total + sq
     return torch.sqrt(total)
 

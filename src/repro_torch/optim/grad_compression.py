@@ -8,13 +8,20 @@
   the sign of a negative element).
 * ``int8_compress``/``int8_decompress``: per-tensor max-abs int8
   quantization (``torch.round`` and ``jnp.round`` both round half to even).
-* ``compressed_psum_mean``, the data-parallel mean with an int8 wire format,
-  needs the sharded train step: it waits for the training mesh, the next
-  slice of the port (ROADMAP.md queue 1), and raises.
+* ``compressed_psum_mean``: the data-parallel mean with an int8 wire format,
+  the reference's formula: each rank quantizes its own leaf with its own
+  scale, the int8 values are summed in int32 and the scales reduced by max
+  across the mesh axis, and the sum is dequantized with the largest scale
+  over the axis' size. Where the ranks' scales differ that is not the exact
+  mean (each ``q`` was quantized with its own scale and is dequantized with
+  the largest); the reference only ever feeds it replicated leaves, where
+  it is the int8 round trip.
 """
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, Replicate
 
 from repro_torch.models.param import flatten, unflatten
 
@@ -58,7 +65,34 @@ def int8_decompress(q: torch.Tensor, scale: torch.Tensor, dtype=torch.float32):
 
 
 def compressed_psum_mean(tree, mesh, axis: str = "data"):
-    """Data-parallel mean with an int8 wire format: needs a mesh."""
-    raise NotImplementedError(
-        "compressed_psum_mean is not ported yet: it comes with the training mesh, "
-        "the next slice of the port (ROADMAP.md queue 1)")
+    """Mean over the ``axis`` of ``mesh`` (a ``DeviceMesh``) of every leaf of
+    ``tree`` (a tensor or a nested dict of them) with an int8 wire format:
+    ``sum_i(q_i) * max_i(scale_i) / n``, the sum in int32, on each rank's
+    local tensor. A plain tensor is this rank's value; a DTensor leaf must
+    be replicated on every mesh dim of size > 1 (the reference's in_specs
+    ``P()``) and comes back with its placements."""
+    group = mesh.get_group(axis)
+    n = mesh.size(mesh.mesh_dim_names.index(axis))
+
+    def one(x):
+        local = x
+        if isinstance(x, DTensor):
+            if any(mesh.size(i) > 1 and not isinstance(p, Replicate)
+                   for i, p in enumerate(x.placements)):
+                raise ValueError(f"compressed_psum_mean: a leaf placed {x.placements} "
+                                 "is not replicated; it takes replicated leaves, as the "
+                                 "reference's shard_map in_specs P()")
+            local = x.to_local()
+        q, scale = int8_compress(local)
+        acc = q.to(torch.int32)
+        dist.all_reduce(acc, dist.ReduceOp.SUM, group=group)
+        smax = scale.clone()
+        dist.all_reduce(smax, dist.ReduceOp.MAX, group=group)
+        out = (acc.float() * smax / n).to(x.dtype)
+        if isinstance(x, DTensor):
+            return DTensor.from_local(out, x.device_mesh, x.placements, run_check=False)
+        return out
+
+    if isinstance(tree, torch.Tensor):
+        return one(tree)
+    return unflatten({k: one(v) for k, v in flatten(tree).items()})

@@ -41,7 +41,7 @@ import math
 from typing import Any, Callable, Mapping, Sequence
 
 import torch
-from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.models.param import ParamSpec, tree_map
 
@@ -162,12 +162,11 @@ class Rules:
     def placements(self, spec: tuple, shape) -> tuple:
         """The DTensor placements of a ``spec_for`` spec of a tensor of
         ``shape`` (``sharding_for`` without the logical axes)."""
-        out = []
-        for name in self.shape:
-            dim = next((d for d, e in enumerate(spec)
-                        if e == name or (isinstance(e, tuple) and name in e)), None)
-            out.append(Replicate() if dim is None or shape[dim] == 1 else Shard(dim))
-        return tuple(out)
+        return spec_placements(spec, shape, self.shape)
+
+    def named(self, spec: tuple) -> "NamedSharding":
+        """``spec`` on the rules' mesh."""
+        return NamedSharding(spec, self.mesh)
 
     def place(self, x: torch.Tensor, axes: tuple[Any, ...]) -> DTensor:
         """The global tensor ``x`` (every rank holds all of it) as a DTensor
@@ -176,29 +175,86 @@ class Rules:
 
     def constrain(self, x: torch.Tensor, axes: tuple[Any, ...]) -> DTensor:
         """``x`` redistributed to ``sharding_for(x.shape, axes)``; a plain
-        tensor is taken as the global value (``place``)."""
+        tensor is taken as the global value (``place``). Under autograd the
+        gradient is brought to the same placements, as the transpose of the
+        reference's ``with_sharding_constraint`` constrains the cotangent
+        (else DTensor's backward may carry a split it cannot view, such as
+        an uneven one of a spatial dim, into the next op)."""
         placements = self.sharding_for(x.shape, axes)
         if not isinstance(x, DTensor):
             return place(x, self.mesh, placements)
-        if tuple(x.placements) == placements:
-            return x
-        return x.redistribute(self.mesh, placements)
+        if torch.is_grad_enabled() and x.requires_grad:
+            return _Constrain.apply(x, placements)
+        return redistribute(x, placements)
 
 
-def place(x: torch.Tensor, mesh, placements: Sequence) -> DTensor:
-    """``x``'s slice on this rank under ``placements`` (views, in mesh order,
-    so two mesh dims sharding one tensor dim split it major to minor),
-    wrapped as a DTensor without a copy or a check."""
-    local = x
+class _Constrain(torch.autograd.Function):
+    """``x`` redistributed to ``placements``, and its gradient too."""
+
+    @staticmethod
+    def forward(ctx, x, placements):
+        ctx.placements = placements
+        if tuple(x.placements) == tuple(placements):
+            return x.view_as(x)
+        return redistribute(x, placements)
+
+    @staticmethod
+    def backward(ctx, g):
+        return redistribute(g, ctx.placements), None
+
+
+def spec_placements(spec: tuple, shape, sizes: Mapping[str, int]) -> tuple:
+    """The DTensor placements, one per mesh dim of ``sizes`` ({axis: size}
+    in mesh order), of a ``spec_for`` spec of a tensor of ``shape``. A
+    tensor dim of size 1 is left replicated (see ``Rules.sharding_for``)."""
+    out = []
+    for name in sizes:
+        dim = next((d for d, e in enumerate(spec)
+                    if e == name or (isinstance(e, tuple) and name in e)), None)
+        out.append(Replicate() if dim is None or shape[dim] == 1 else Shard(dim))
+    return tuple(out)
+
+
+class NamedSharding(tuple):
+    """A ``spec_for`` spec on its mesh, the counterpart of the reference's
+    ``NamedSharding(mesh, PartitionSpec)``: it compares and iterates as the
+    spec tuple, ``.mesh`` is the mesh and ``placements(shape)`` the DTensor
+    placements of a tensor of ``shape``. Trees of these are a sharded
+    bundle's ``in_shardings`` and ``out_shardings``, which ``data.place``
+    and ``Checkpointer.restore(shardings=)`` take."""
+
+    def __new__(cls, spec, mesh):
+        self = super().__new__(cls, spec)
+        self.mesh = mesh
+        return self
+
+    def placements(self, shape) -> tuple:
+        return spec_placements(self, shape, mesh_shape(self.mesh))
+
+
+def shard_slices(shape, mesh, placements: Sequence) -> tuple[slice, ...]:
+    """This rank's index (a tuple of slices) into a global array of
+    ``shape`` under ``placements``, in mesh order, so two mesh dims sharding
+    one tensor dim split it major to minor. Basic slicing: on a tensor or a
+    numpy array it is a view."""
+    idx = [slice(0, n) for n in shape]
     coord = mesh.get_coordinate()
     for i, p in enumerate(placements):
         if isinstance(p, Shard):
             n = mesh.size(i)
-            chunk = local.shape[p.dim] // n
-            if chunk * n != local.shape[p.dim]:
-                raise ValueError(f"dim {p.dim} of {tuple(x.shape)} does not divide "
+            start, stop = idx[p.dim].start, idx[p.dim].stop
+            chunk = (stop - start) // n
+            if chunk * n != stop - start:
+                raise ValueError(f"dim {p.dim} of {tuple(shape)} does not divide "
                                  f"by mesh dim {i} of size {n}")
-            local = local.narrow(p.dim, coord[i] * chunk, chunk)
+            idx[p.dim] = slice(start + coord[i] * chunk, start + (coord[i] + 1) * chunk)
+    return tuple(idx)
+
+
+def place(x: torch.Tensor, mesh, placements: Sequence) -> DTensor:
+    """``x``'s slice on this rank under ``placements`` (a view,
+    ``shard_slices``), wrapped as a DTensor without a copy or a check."""
+    local = x[shard_slices(x.shape, mesh, placements)]
     return DTensor.from_local(local, mesh, list(placements), run_check=False)
 
 
@@ -286,18 +342,47 @@ def to_global(x):
     return x.full_tensor()
 
 
-def local_part(t: torch.Tensor, mesh, placements: Sequence) -> torch.Tensor:
+def redistribute(x: DTensor, placements: Sequence) -> DTensor:
+    """``x`` in ``placements``. Where it differs only on mesh dims of size 1
+    (whose one rank holds the global value under any placement) it is
+    relabelled without a collective."""
+    mesh = x.device_mesh
+    placements = tuple(placements)
+    if tuple(x.placements) == placements:
+        return x
+    if all(mesh.size(i) == 1 for i, (a, b) in enumerate(zip(x.placements, placements))
+           if a != b):
+        return DTensor.from_local(x.to_local(), mesh, placements, run_check=False,
+                                  shape=x.shape, stride=x.stride())
+    return x.redistribute(mesh, placements)
+
+
+def replicated(x: torch.Tensor) -> torch.Tensor:
+    """A DTensor replicated on every mesh dim (a pending sum is reduced, a
+    shard gathered); a plain tensor as it is."""
+    if not isinstance(x, DTensor):
+        return x
+    return redistribute(x, [Replicate()] * x.device_mesh.ndim)
+
+
+def local_part(t: torch.Tensor, mesh, placements: Sequence,
+               grad_placements: Sequence | None = None) -> torch.Tensor:
     """This rank's local tensor of ``t`` under ``placements``. A DTensor is
     redistributed where a mesh dim of size > 1 differs (a dim of size 1
     holds the global data under any placement); a plain tensor is taken as
-    the global value and sliced (views)."""
+    the global value and sliced (views). ``grad_placements`` (default:
+    ``placements``) says what the local tensor's gradient is: ``Partial()``
+    on a mesh dim where each rank's gradient is only its share of a sum."""
     if not isinstance(t, DTensor):
         return place(t, mesh, placements).to_local()
     want = tuple(p if mesh.size(i) > 1 else t.placements[i]
                  for i, p in enumerate(placements))
     if tuple(t.placements) != want:
         t = t.redistribute(mesh, want)
-    return t.to_local()
+    if grad_placements is not None:
+        grad_placements = tuple(g if mesh.size(i) > 1 else t.placements[i]
+                                for i, g in enumerate(grad_placements))
+    return t.to_local(grad_placements=grad_placements)
 
 
 def _contiguous_stride(shape) -> tuple[int, ...]:
@@ -323,19 +408,18 @@ def run_local(name: str, fn: Callable, operands: Sequence, roles: Sequence,
     roles on one mesh dim, or a role whose size does not divide, raise.
     ``out_roles`` labels ``fn``'s output (or, as a list, each of its
     outputs); outputs come back as DTensors on the operands' mesh, sharded
-    where their role is."""
+    where their role is.
+
+    Under autograd: an operand left replicated on a mesh dim over which the
+    work is split (it lacks the role sharded there) gets, on each rank, only
+    that rank's share of its gradient; it leaves the boundary as a pending
+    sum (``Partial``), reduced where it meets its param's placements."""
     dts = [t for t in operands if isinstance(t, DTensor)]
     if not dts:
         return fn(*operands)
     mesh = dts[0].device_mesh
     mesh_role: list[str | None] = [None] * mesh.ndim
-    sizes: dict[str, int] = {}
     for t, r in zip(operands, roles):
-        if not isinstance(t, torch.Tensor):
-            continue
-        for d, role in enumerate(r):
-            if role is not None:
-                sizes.setdefault(role, t.shape[d])
         if not isinstance(t, DTensor):
             continue
         for i, p in enumerate(t.placements):
@@ -368,8 +452,13 @@ def run_local(name: str, fn: Callable, operands: Sequence, roles: Sequence,
                 out.append(Replicate())
         return tuple(out)
 
-    local = [local_part(t, mesh, target(t, r)) if isinstance(t, torch.Tensor) else t
-             for t, r in zip(operands, roles)]
+    def grad_at(t, r):
+        return tuple(Partial() if mesh.size(i) > 1 and mesh_role[i] is not None
+                     and isinstance(p, Replicate) else p
+                     for i, p in enumerate(target(t, r)))
+
+    local = [local_part(t, mesh, target(t, r), grad_at(t, r)) if isinstance(t, torch.Tensor)
+             else t for t, r in zip(operands, roles)]
     out = fn(*local)
 
     def wrap(y, r):
@@ -379,7 +468,7 @@ def run_local(name: str, fn: Callable, operands: Sequence, roles: Sequence,
             if mesh.size(i) > 1 and role is not None and role in r:
                 d = r.index(role)
                 placements.append(Shard(d))
-                shape[d] = sizes[role]
+                shape[d] *= mesh.size(i)
             else:
                 placements.append(Replicate())
         return DTensor.from_local(y, mesh, placements, run_check=False,

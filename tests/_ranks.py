@@ -8,12 +8,14 @@ each rank initialises the group itself, writes its results under ``OUT``
 and destroys the group. ``run_reference`` runs a JAX script with
 ``XLA_FLAGS`` asking for ``n_devices`` host devices.
 """
+import itertools
 import os
 import pathlib
 import subprocess
 import sys
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
+_WORLDS = itertools.count()
 
 RANK_PRELUDE = """
 import os, sys
@@ -35,14 +37,17 @@ def _env(**extra) -> dict:
     return env
 
 
-def run_ranks(script: str, n: int, tmp: pathlib.Path, timeout: float = 180.0) -> None:
-    """Run ``RANK_PRELUDE + script`` as ``n`` ranks; raise with a rank's
-    output if any fails. The script ends with ``dist.destroy_process_group()``."""
+def run_ranks(script: str, n: int, tmp: pathlib.Path, timeout: float = 180.0,
+              env: dict | None = None) -> None:
+    """Run ``RANK_PRELUDE + script`` as ``n`` ranks (``env``: more variables);
+    raise with a rank's output if any fails. The script ends with
+    ``dist.destroy_process_group()``."""
     code = RANK_PRELUDE + script
-    init = f"file://{tmp / 'rendezvous'}"
+    init = f"file://{tmp / f'rendezvous{next(_WORLDS)}'}"  # a new file for each world
     procs = [subprocess.Popen([sys.executable, "-c", code], cwd=ROOT, text=True,
                               stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                              env=_env(RANK=str(r), WORLD_SIZE=str(n), INIT=init, OUT=str(tmp)))
+                              env=_env(RANK=str(r), WORLD_SIZE=str(n), INIT=init, OUT=str(tmp),
+                                       **(env or {})))
              for r in range(n)]
     try:
         outs = [p.communicate(timeout=timeout) for p in procs]
@@ -56,12 +61,15 @@ def run_ranks(script: str, n: int, tmp: pathlib.Path, timeout: float = 180.0) ->
             raise AssertionError(f"rank {r} exited {p.returncode}:\n{out[-2000:]}\n{err[-4000:]}")
 
 
-def run_reference(script: str, n_devices: int, tmp: pathlib.Path, timeout: float = 180.0) -> None:
-    """Run a JAX ``script`` on ``n_devices`` host devices, ``OUT`` = ``tmp``."""
+def run_reference(script: str, n_devices: int, tmp: pathlib.Path, timeout: float = 180.0,
+                  env: dict | None = None) -> None:
+    """Run a JAX ``script`` on ``n_devices`` host devices, ``OUT`` = ``tmp``
+    (``env``: more variables)."""
     res = subprocess.run(
         [sys.executable, "-c", script], cwd=ROOT, text=True, capture_output=True,
         timeout=timeout, env=_env(OUT=str(tmp), JAX_PLATFORMS="cpu",
-                                  XLA_FLAGS=f"--xla_force_host_platform_device_count={n_devices}"))
+                                  XLA_FLAGS=f"--xla_force_host_platform_device_count={n_devices}",
+                                  **(env or {})))
     if res.returncode != 0:
         raise AssertionError(f"reference run exited {res.returncode}:\n{res.stdout[-2000:]}\n"
                              f"{res.stderr[-4000:]}")

@@ -42,7 +42,8 @@ def test_port_imports_neither_jax_nor_the_reference():
     assert "foreign: []" in res.stdout
     imported = res.stdout.split("imported:")[1].split()
     for name in ("repro_torch.sharding", "repro_torch.sharding.rules", "repro_torch.launch.mesh",
-                 "repro_torch.models.moe_a2a"):
+                 "repro_torch.models.moe_a2a", "repro_torch.examples.train_e2e",
+                 "repro_torch.examples.elastic_failover"):
         assert name in imported, name
 
 
@@ -184,3 +185,22 @@ def test_training_entry_points_raise_without_a_card(tmp_path):
     with pytest.raises(RuntimeError, match="cuda"):
         ck.restore(tree)
     assert ck.restore(tree, device="cpu")[1] == 1
+
+
+def test_mesh_trainer_and_examples_raise_without_a_card(tmp_path):
+    """The trainer's ``--mesh`` path and both examples run on ``cuda``
+    unless told ``--device cpu``: no fallback, no process group started."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    import torch.distributed as dist
+
+    from repro_torch.examples import elastic_failover, train_e2e
+    from repro_torch.launch import train
+
+    with pytest.raises(RuntimeError, match="cuda"):
+        train.main(["--arch", "vit-b16", "--steps", "1", "--mesh", "--ckpt-dir", str(tmp_path)])
+    with pytest.raises(RuntimeError, match="cuda"):
+        train_e2e.main(["--steps", "2", "--ckpt-dir", str(tmp_path / "e2e")])
+    with pytest.raises(RuntimeError, match="cuda"):
+        elastic_failover.main(["--ckpt-dir", str(tmp_path / "el")])
+    assert not dist.is_initialized()

@@ -191,6 +191,26 @@ def test_int8_rounds_half_to_even_as_the_reference():
     np.testing.assert_array_equal(q.numpy(), [127, 0, 2, 2, 0, -2, 4])
 
 
-def test_compressed_psum_mean_waits_for_sharding():
-    with pytest.raises(NotImplementedError, match="the training mesh"):
-        gc.compressed_psum_mean({"w": torch.zeros(2)}, mesh=None)
+def test_compressed_psum_mean_on_one_rank_is_the_int8_round_trip():
+    """On a one-rank mesh the mean is the int8 round trip, bit for bit, for
+    plain leaves and for a replicated DTensor leaf, which keeps its
+    placements (the multi-rank cases are in test_torch_train_mesh_io.py)."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Replicate
+
+    from repro_torch.launch.mesh import make_host_mesh
+
+    mesh = make_host_mesh(device="cpu")
+    try:
+        rng = np.random.default_rng(0)
+        w = torch.from_numpy(rng.standard_normal((8, 8)).astype(np.float32))
+        h = torch.from_numpy(rng.standard_normal((5,)).astype(np.float32)).bfloat16()
+        r = DTensor.from_local(w.clone(), mesh, [Replicate(), Replicate()])
+        out = gc.compressed_psum_mean({"w": w, "blk": {"h": h, "r": r}}, mesh)
+        for got, x in ((out["w"], w), (out["blk"]["h"], h), (out["blk"]["r"].to_local(), w)):
+            assert got.dtype == x.dtype
+            assert torch.equal(got, gc.int8_decompress(*gc.int8_compress(x), x.dtype))
+        assert out["blk"]["r"].placements == r.placements
+        assert torch.equal(gc.compressed_psum_mean(w, mesh), out["w"])
+    finally:
+        dist.destroy_process_group()

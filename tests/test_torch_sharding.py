@@ -44,6 +44,7 @@ from repro_torch.core.bucketing import BucketingConfig, BucketTable
 from repro_torch.launch import serve, steps
 from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
 from repro_torch.models import param, vit
+from repro_torch.optim import adamw
 from repro_torch.serving import fleet
 from repro_torch.sharding import rules
 
@@ -316,15 +317,27 @@ def _equal(a, b):
     return torch.equal(a, b)
 
 
+def _train_args(b, seed):
+    """Fresh (params, opt, batch) of a train bundle (the step updates params
+    and moments in place)."""
+    params = _materialize(b.abstract_inputs[0], torch.Generator().manual_seed(seed))
+    return [params, adamw.init_state(params),
+            _materialize(b.abstract_inputs[2], torch.Generator().manual_seed(seed + 1))]
+
+
 @pytest.mark.parametrize("arch", list(configs._ARCHS))
 def test_serve_bundles_on_one_rank_mesh_equal_unmeshed(host_mesh, arch):
+    """Every bundle on a (1,1) mesh, bit for bit: the serving steps and the
+    train steps (the train profile's placements, the updated params and
+    moments and the metrics)."""
     for shape in configs.get_arch(arch).shapes:
-        if shape.kind == "train":
-            with pytest.raises(NotImplementedError, match="next slice"):
-                steps.build_bundle(arch, shape.name, host_mesh, smoke=True)
-            continue
         b0 = steps.build_bundle(arch, shape.name, smoke=True)
         b1 = steps.build_bundle(arch, shape.name, host_mesh, smoke=True)
+        if shape.kind == "train":
+            out0 = b0.step_fn(*_train_args(b0, 0))
+            out1 = b1.step_fn(*steps.place_inputs(b1, *_train_args(b0, 0)))
+            assert _equal(out0, _global(out1)), (arch, shape.name)
+            continue
         params = _materialize(b0.abstract_inputs[0], torch.Generator().manual_seed(0))
 
         def rest():
@@ -375,6 +388,7 @@ from repro_torch.core import engine
 from repro_torch.core.bucketing import BucketingConfig, BucketTable
 from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import param, vit
+from repro_torch.optim import adamw
 from repro_torch.sharding.rules import make_rules
 ref = np.load(os.path.join(OUT, "reference.npz"))
 cfg = vit.ViTConfig(img_res=56, patch=8, n_layers=6, d_model=32, n_heads=2, d_ff=64, n_classes=8)

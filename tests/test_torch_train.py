@@ -599,9 +599,34 @@ def test_pick_accum_equals_the_reference():
                 assert steps.pick_accum(gb, act, dp) == jsteps.pick_accum(gb, act, dp)
 
 
-def test_build_bundle_mesh_waits_for_sharding():
-    with pytest.raises(NotImplementedError, match="the training mesh"):
-        steps.build_bundle("vit-b16", "cls_224", object(), smoke=True)
+def _tree_specs(tree):
+    """A shardings tree as {path: spec tuple} (the reference's
+    NamedSharding by its PartitionSpec)."""
+    flat = jax_flatten(tree) if isinstance(tree, dict) else {"": tree}
+    return {k: tuple(getattr(v, "spec", v)) for k, v in flat.items()}
+
+
+@pytest.mark.parametrize("mesh", [(1, 1), (2, 4), (16, 16)], ids=["1x1", "2x4", "16x16"])
+def test_train_bundles_shard_by_the_train_profile(mesh):
+    """Every train bundle on a mesh (given as its shape) against the
+    reference's on an AbstractMesh of that shape: the train profile's
+    (params, opt, batch) in_shardings and (params, opt, metrics)
+    out_shardings spec for spec, and the accumulation ``pick_accum`` chooses
+    from the mesh's data-parallel extent."""
+    amesh = jax.sharding.AbstractMesh(mesh, ("data", "model"))
+    shape = {"data": mesh[0], "model": mesh[1]}
+    for name in list_archs():
+        for sh in get_arch(name).shapes:
+            if sh.kind != "train" or sh.skip_reason:
+                continue
+            jb = jsteps.build_bundle(name, sh.name, amesh)
+            b = steps.build_bundle(name, sh.name, shape)
+            assert b.rules.mapping == jsteps.rules_lib.PROFILES[get_arch(name).train_profile]
+            for got, exp in zip(b.in_shardings + b.out_shardings,
+                                jb.in_shardings + jb.out_shardings):
+                assert _tree_specs(got) == _tree_specs(exp), (name, sh.name, mesh)
+            assert (b.notes, b.accum, b.model_flops) == (jb.notes, jb.hlo_scale,
+                                                         jb.model_flops), (name, sh.name)
 
 
 def test_serving_bundles_run_the_ported_paths():
