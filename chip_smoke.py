@@ -139,6 +139,19 @@ each failing the run on any failed check:
             step's gradients over the one-rank "data" group equal to the int8
             round trip; step ms against ``[train]``'s, peak memory, and one
             profiled step's idle share.
+17. roofline: the dry-run tooling against the card: one vit-l16 cls_384
+            train step counted with the per-rank counter
+            (``runtime.hlo_bytes``) on the (1,1) mesh, its FLOPs equal to
+            ``launch.dryrun.run_cell``'s count of the same bundle on a fake
+            (1,1) world (a subprocess), its bytes beside them with the
+            difference explained, its H100 roofline terms and the share of
+            the bound ``[train]``'s measured median step reaches; then the
+            hill-climb cell vit-l16/serve_b128 (B=128, bf16) variants v0,
+            v1, v2, v3 and v6 on the card: ms a batch, images/s, counted
+            terms, launches (flash_mma 24, tome_scores one a merge layer),
+            every flash_mma and tome_scores call of each run against its
+            plain version, v0 bit-equal to ``vit.forward``, v3 within
+            VISION_BF16_REL of v0.
 
 The line before the last is the kernels JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without a card, or outside a checkout, it
@@ -148,6 +161,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import pathlib
 import re
 import subprocess
@@ -281,6 +295,8 @@ def main() -> int:
     paths.update(train_paths)
     torch.cuda.empty_cache()
     paths["train_mesh"] = train_mesh_phase(torch, train_run)
+    torch.cuda.empty_cache()
+    paths.update(roofline_phase(torch, train_run))
 
     for row in rows:
         name = row["name"]
@@ -3041,6 +3057,230 @@ def train_mesh_phase(torch, unmeshed: dict) -> dict[str, int]:
                  lambda: bundle.step_fn(params, opt, batch))
     print(f"[train mesh] phase {time.perf_counter() - t_phase:.1f} s")
     return counts
+
+
+# -------------------------------------------------------------------- roofline
+
+ROOFLINE_CELL = ("vit-l16", "serve_b128")
+ROOFLINE_VARIANTS = ("v0_baseline", "v1_tome_a0.10", "v2_tome_a0.20", "v3_fused_qkv",
+                     "v6_tome_amax_constrained")
+
+
+def fake_world_count(arch: str, shape: str) -> dict:
+    """``launch.dryrun.run_cell`` of ``arch/shape`` on a fake (1,1) world, in
+    a process of its own (this one holds ``[train mesh]``'s NCCL group; a
+    fake world needs its own), with no card visible to it."""
+    code = ("import json; from repro_torch.launch import dryrun; "
+            f"rec = dryrun.run_cell({arch!r}, {shape!r}, mesh_shape=(1, 1), verbose=False); "
+            "print(json.dumps(rec))")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), CUDA_VISIBLE_DEVICES="")
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=300, env=env, cwd=ROOT)
+    check(res.returncode == 0, f"fake-world count of {arch}/{shape} failed:\n"
+                               f"{res.stdout[-2000:]}\n{res.stderr[-4000:]}")
+    rec = json.loads(res.stdout.strip().splitlines()[-1])
+    check(rec.get("status") == "ok", f"fake-world count of {arch}/{shape}: {rec}")
+    return rec
+
+
+def print_roofline(label: str, rl, extra: str = "") -> None:
+    print(f"[roofline] {label}: counted {rl.hlo_flops_per_device:.6e} FLOP "
+          f"({ {k: f'{v:.4e}' for k, v in (rl.flops_by_dtype or {}).items()} }), "
+          f"{rl.hlo_bytes_per_device:.6e} B, wire {rl.wire_bytes_per_device:.4e} B; H100 "
+          f"data-sheet terms t_compute {rl.t_compute * 1e3:.3f} ms, t_memory "
+          f"{rl.t_memory * 1e3:.3f} ms, t_collective {rl.t_collective * 1e3:.3f} ms -> "
+          f"{rl.bottleneck}-bound at {rl.t_bound * 1e3:.3f} ms; useful_flops_ratio "
+          f"{rl.useful_flops_ratio:.4f}{extra}")
+
+
+def _fuse_qkv(params: dict) -> dict:
+    """``params`` with every attention's wq/wk/wv (and biases) as one
+    ``wqkv`` (``bqkv``), the layout of ``fused_qkv=True`` (same weights)."""
+    import torch
+    out = {}
+    for k, v in params.items():
+        if isinstance(v, dict):
+            out[k] = _fuse_qkv(v)
+        elif k in ("wq", "bq"):
+            pre = k[0]
+            out[f"{pre}qkv"] = torch.cat([params[f"{pre}q"], params[f"{pre}k"],
+                                          params[f"{pre}v"]], dim=-1)
+        elif k not in ("wk", "wv", "bk", "bv"):
+            out[k] = v
+    return out
+
+
+def roofline_phase(torch, train_run: dict) -> dict[str, dict[str, int]]:
+    """The dry-run tooling held against the card. (1) One vit-l16 cls_384
+    train step at full size counted on the card on the (1,1) mesh with the
+    per-rank counter, against ``dryrun.run_cell``'s count of the same bundle
+    on a fake (1,1) world, then its H100 roofline terms beside ``[train]``'s
+    measured median step. (2) The hill-climb cell vit-l16/serve_b128 (B=128,
+    224 px, bf16) on the card on the (1,1) mesh, five variants: ms a batch,
+    counted terms, launches; v0 bit-equal to ``vit.forward``, v3 within
+    VISION_BF16_REL of v0, and every flash_mma and tome_scores call of the
+    ToMe variants held against its plain version. Returns each counted
+    run's launches."""
+    from repro_torch import configs
+    from repro_torch.core import pruning
+    from repro_torch.data import pipeline
+    from repro_torch.kernels import flash_attention as flash_mod
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import tome_scores as tome_mod
+    from repro_torch.launch import hillclimb, steps, train
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import param, vit
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import hlo_bytes, roofline
+    from repro_torch.sharding.rules import to_global
+
+    t_phase = time.perf_counter()
+    out = {}
+    mesh = make_host_mesh(device="cuda")
+
+    # (1) the train step, counted on the card and on a fake world
+    arch = configs.get_arch(TRAIN_ARCH)
+    cfg = configs.config_for_shape(arch, arch.shape(TRAIN_SHAPE))
+    bundle = steps.build_bundle(TRAIN_ARCH, TRAIN_SHAPE, mesh)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = param.init_params(vit.specs(cfg), gen, "cuda", dtype=cfg.dtype)
+    params, opt = steps.place_inputs(bundle, params, adamw.init_state(params))
+    batch = pipeline.place(train.host_batch(arch, cfg, pipeline.SyntheticData(), 0,
+                                            bundle.abstract_inputs[2]), "cuda",
+                           bundle.in_shardings[2])
+    torch.cuda.synchronize()
+    zero_counts()
+    with hlo_bytes.Counter() as counter:
+        params, opt, metrics = bundle.step_fn(params, opt, batch)
+        loss = float(metrics["loss"])
+    torch.cuda.synchronize()
+    out["roofline train count"] = counts = read_counts()
+    exp = _expect(flash_attention_mma=2 * cfg.n_layers * bundle.accum)
+    check(counts == exp and loss == loss, f"[roofline] train count: launches {counts} != {exp} "
+                                          f"or loss {loss}")
+    del params, opt, batch, metrics
+    torch.cuda.empty_cache()
+    fake = fake_world_count(TRAIN_ARCH, TRAIN_SHAPE)
+    rl = roofline.analyze(f"{TRAIN_ARCH}/{TRAIN_SHAPE}@1x1 card", counter, 1, bundle.model_flops)
+    med = train_run["median_s"]
+    print_roofline(f"{TRAIN_ARCH} {TRAIN_SHAPE} train step on the card, (1,1) mesh, accum "
+                   f"{bundle.accum} (remat {cfg.remat})", rl,
+                   f" against model_flops {bundle.model_flops:.6e}; [train]'s measured median "
+                   f"step {med * 1e3:.2f} ms reaches {rl.t_bound / med:.4f} of the bound "
+                   f"({rl.t_compute / med:.4f} of the compute term)")
+    flops_equal = counter.flops == fake["hlo_flops_per_device"]
+    d_bytes = counter.bytes - fake["hlo_bytes_per_device"]
+    print(f"[roofline] the same bundle counted by dryrun.run_cell on a fake (1,1) world "
+          f"(one microbatch's step x hlo_scale {fake['hlo_scale']}): "
+          f"{fake['hlo_flops_per_device']:.6e} FLOP, {fake['hlo_bytes_per_device']:.6e} B, "
+          f"kernel calls {fake['kernel_calls']} (card {dict(counter.kernels)}); FLOPs equal "
+          f"{flops_equal}; bytes card - fake = {d_bytes:.6e} ({d_bytes / counter.bytes:+.4%}): "
+          f"the fake count has the AdamW update {fake['hlo_scale']:g} times and no f32 "
+          f"accumulation of microbatch gradients, the card's step one update and the "
+          f"accumulation {'ok' if flops_equal else 'FAIL'}")
+    check(flops_equal, "[roofline] FLOPs counted on the card != on the fake (1,1) world")
+    check({k: v for k, v in counter.kernels.items()}
+          == {k: v * fake["hlo_scale"] for k, v in fake["kernel_calls"].items()},
+          "[roofline] kernel calls counted on the card != the fake world's x hlo_scale")
+    del counter
+
+    # (2) the hill-climb cell on the card
+    a_name, s_name = ROOFLINE_CELL
+    varc = dict(hillclimb.VARIANTS[f"{a_name}/{s_name}"])
+    arch = configs.get_arch(a_name)
+    shape = arch.shape(s_name)
+    cfg = configs.config_for_shape(arch, shape)
+    p0 = param.init_params(vit.specs(cfg), torch.Generator(device="cuda").manual_seed(7),
+                           "cuda", dtype=cfg.dtype)
+    images = torch.randn((shape.batch, cfg.img_res, cfg.img_res, 3), device="cuda",
+                         generator=torch.Generator(device="cuda").manual_seed(8))
+    plain_logits = vit.forward(p0, cfg, images)
+    logits = {}
+    flash_calls, tome_calls = [], []
+
+    def recording(module, name, calls):
+        fn = getattr(module, name)
+
+        def rec(*args, **kwargs):
+            calls.append((args, kwargs))
+            return fn(*args, **kwargs)
+        return swapped_in(module, name, rec)
+
+    for variant in ROOFLINE_VARIANTS:
+        kw = varc[variant]
+        b = steps.build_bundle(a_name, s_name, mesh, **kw)
+        fused = kw.get("config_patch", {}).get("fused_qkv", False)
+        args = steps.place_inputs(b, _fuse_qkv(p0) if fused else p0,
+                                  {"images": images, "labels": torch.zeros(
+                                      shape.batch, dtype=torch.int32, device="cuda")})
+        b.step_fn(*args)  # warm-up
+        ms = time_ms(torch, lambda: b.step_fn(*args), 3)
+        torch.cuda.synchronize()
+        flash_calls.clear()
+        tome_calls.clear()
+        zero_counts()
+        with hlo_bytes.Counter() as c, recording(flash_mod, "flash_attention", flash_calls), \
+                recording(tome_mod, "tome_scores", tome_calls):
+            y = b.step_fn(*args)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        out[f"roofline {a_name} {s_name} {variant}"] = counts
+        logits[variant] = to_global(y)
+        alpha = kw.get("janus_alpha")
+        sched = (pruning.make_schedule("exponential", alpha, cfg.n_layers, cfg.num_tokens)
+                 if alpha is not None else [0] * cfg.n_layers)
+        exp = _expect(flash_attention_mma=cfg.n_layers,
+                      tome_scores=sum(1 for r in sched if r > 0))
+        rl = roofline.analyze(f"{a_name}/{s_name}#{variant}", c, 1, b.model_flops)
+        print_roofline(f"{a_name} {s_name} {variant} ({kw}{b.notes}) on the card", rl,
+                       f"; {ms:.3f} ms a batch of {shape.batch}, {shape.batch / ms * 1e3:.1f} "
+                       f"images/s, {rl.t_bound * 1e3 / ms:.4f} of the bound; launches "
+                       f"{_nz(counts)} (implies {_nz(exp)}) "
+                       f"{'ok' if counts == exp else 'FAIL'}")
+        check(counts == exp, f"[roofline] {variant} launches {counts} != {exp}")
+        # every kernel call of this run against its plain version (not counted)
+        flash_err, tome_err = 0.0, 0.0
+        for (q, k, v), kwargs in flash_calls:
+            got = flash_mod.flash_attention(q, k, v, **kwargs)
+            want = ref.flash_attention_ref(q, k, v, **kwargs)
+            err = (got.float() - want.float()).abs().max().item()
+            scale = want.float().abs().max().item()
+            ok = (torch.allclose(got.float(), want.float(), **FLASH_BF16)
+                  and err <= FLASH_BF16_REL * scale)
+            check(ok, f"[roofline] {variant} flash_mma q {tuple(q.shape)}: {err:.3e} of max "
+                      f"{scale:.3e}")
+            flash_err = max(flash_err, err)
+        for (a, bb, nb_len), _ in tome_calls:
+            m, i = tome_mod.tome_scores(a, bb, nb_len)
+            mr, _ = ref.tome_scores_ref(a, bb, nb_len)
+            scores = torch.einsum("bnd,bmd->bnm", a, bb)
+            at_idx = torch.gather(scores, 2, i.long()[..., None])[..., 0]
+            ok = (torch.allclose(m, mr, **TOME_MAX)
+                  and torch.allclose(at_idx, scores.amax(-1), **TOME_MAX))
+            check(ok, f"[roofline] {variant} tome_scores a {tuple(a.shape)} b {tuple(bb.shape)}")
+            tome_err = max(tome_err, (m - mr).abs().max().item())
+        shapes = sorted({tuple(q.shape) for (q, _, _), _ in flash_calls}, key=lambda t: -t[2])
+        biased = sum(kwargs.get("bias") is not None for _, kwargs in flash_calls)
+        tshapes = [(tuple(a.shape), tuple(bb.shape)) for (a, bb, _), _ in tome_calls]
+        print(f"[roofline] {variant} kernels against their plain versions on the card: "
+              f"flash_mma {len(flash_calls)} calls (q shapes {shapes[0]} .. {shapes[-1]}, "
+              f"{biased} with the ToMe bias) max_abs_err {flash_err:.3e} (tol {FLASH_BF16} "
+              f"and {FLASH_BF16_REL} x max|plain|); tome_scores {len(tome_calls)} calls "
+              f"{tshapes[:1]} .. {tshapes[-1:]} max_abs_err {tome_err:.3e} (tol {TOME_MAX}) ok")
+        del args, b, y
+    flash_calls.clear()
+    tome_calls.clear()
+    same = torch.equal(logits["v0_baseline"], plain_logits)
+    v0 = logits["v0_baseline"].float()
+    rel3 = ((logits["v3_fused_qkv"].float() - v0).abs().max() / v0.abs().max()).item()
+    print(f"[roofline] v0_baseline logits bit-equal to vit.forward on the same weights: {same}; "
+          f"v3_fused_qkv against v0: max|d| / max|v0| {rel3:.4e} (tol {VISION_BF16_REL}) "
+          f"{'ok' if same and rel3 <= VISION_BF16_REL else 'FAIL'}")
+    check(same, "[roofline] v0_baseline logits differ from vit.forward")
+    check(rel3 <= VISION_BF16_REL, "[roofline] v3_fused_qkv logits far from v0's")
+    dt = time.perf_counter() - t_phase
+    print(f"[roofline] phase {dt:.1f} s")
+    return out
 
 
 if __name__ == "__main__":

@@ -26,10 +26,20 @@ microbatches takes them too, a microbatch is the reference's (rows
 its share, moved there by one all-to-all a step), and the metrics are
 replicated. ``pick_accum`` sees the mesh's data-parallel extent
 (``_dp_size``).
-Not ported: ``donate_argnums`` and ``lower``/``jitted`` (ahead-of-time
-compilation, item 7), nor ``build_bundle``'s ``config_patch``,
-``janus_alpha`` and ``optimizer``, whose only caller is the hill-climb tool
-(item 7).
+``build_bundle``'s hill-climb options are the reference's: ``optimizer``
+(the train step's ``AdamWConfig``), ``profile_override`` (another sharding
+profile), ``config_patch`` (``dataclasses.replace`` on the shape's config)
+and ``janus_alpha`` (ViT serving through ``vit.forward_janus`` on the
+exponential ToMe schedule).
+
+``hlo_scale`` is the count of identical units a step repeats (a train
+step's ``accum`` microbatches, a sampler's denoise steps) and ``unit_fn``
+runs one of them on the step's arguments: one microbatch's gradient and
+the update, or one denoise step from the initial noise. A count of
+``unit_fn`` times ``hlo_scale`` stands for the step's (``launch.dryrun``),
+as the reference scales the rolled loops of its cost analysis. Not ported:
+``donate_argnums`` and ``lower``/``jitted`` (ahead-of-time compilation):
+the dry-run runs the step on a fake world instead.
 """
 from __future__ import annotations
 
@@ -43,6 +53,7 @@ from torch.distributed.tensor import DTensor, Shard
 
 from repro_torch.configs import config_for_shape, get_arch
 from repro_torch.configs.base import ShapeSpec
+from repro_torch.core import pruning as pruning_lib
 from repro_torch.models import dit as dit_lib
 from repro_torch.models import flux as flux_lib
 from repro_torch.models import layers
@@ -72,6 +83,8 @@ class StepBundle:
     in_shardings: Any = None     # NamedSharding trees of the arguments (with a mesh)
     out_shardings: Any = None    # NamedSharding trees of the results (with a mesh)
     rules: Any = None            # the profile's Rules (with a mesh)
+    hlo_scale: float = 1.0       # identical units of the step (microbatches, sampler steps)
+    unit_fn: Callable | None = None  # one unit on the step's arguments (None: the step)
 
 
 def place_inputs(bundle: StepBundle, *args) -> tuple:
@@ -214,6 +227,17 @@ def _rows_by_microbatch(local: torch.Tensor, accum: int, n: int, s: int, group) 
     return out
 
 
+def _first_microbatch(x: torch.Tensor, accum: int) -> torch.Tensor:
+    """A microbatch's worth of the batch leaf ``x``: its first ``B/accum``
+    rows, or a DTensor's first ``1/accum`` of each rank's rows (the same
+    work as any microbatch, without the exchange that orders them)."""
+    if not isinstance(x, DTensor):
+        return x[:x.shape[0] // accum]
+    local = x.to_local()
+    return DTensor.from_local(local[:local.shape[0] // accum], x.device_mesh, x.placements,
+                              run_check=False)
+
+
 def _microbatches(x: torch.Tensor, accum: int) -> list[torch.Tensor]:
     """The ``accum`` microbatches of the global batch leaf ``x``, microbatch
     ``i`` rows ``i*B/accum`` to ``(i+1)*B/accum``. A DTensor's come back in
@@ -332,8 +356,9 @@ class _Sharded:
     under the rules, and the bundle; without rules, no specs and the step
     as it is."""
 
-    def __init__(self, rules, specs_tree):
+    def __init__(self, rules, specs_tree, ocfg: adamw.AdamWConfig):
         self.rules = rules
+        self.ocfg = ocfg
         self.params = None if rules is None else param_lib.tree_map(
             lambda s: rules.named(rules.spec_for(s.shape, s.axes)), specs_tree)
 
@@ -350,23 +375,35 @@ class _Sharded:
         return {k: self.spec(v.shape, axes[k] if isinstance(axes, dict) else axes)
                 for k, v in tree.items()}
 
-    def bundle(self, name, step, inputs, in_sh, out_sh, flops, **kw) -> StepBundle:
-        if self.rules is None:
-            return StepBundle(name, step, inputs, flops, **kw)
+    def under_rules(self, step):
+        if self.rules is None or step is None:
+            return step
         rules = self.rules
 
         def run(*args):
             with rules_lib.use_rules(rules):
                 return step(*args)
-        return StepBundle(name, run, inputs, flops, in_shardings=in_sh, out_shardings=out_sh,
-                          rules=rules, **kw)
+        return run
+
+    def bundle(self, name, step, inputs, in_sh, out_sh, flops, unit_fn=None,
+               **kw) -> StepBundle:
+        kw["unit_fn"] = self.under_rules(unit_fn)
+        if self.rules is None:
+            return StepBundle(name, step, inputs, flops, **kw)
+        return StepBundle(name, self.under_rules(step), inputs, flops, in_shardings=in_sh,
+                          out_shardings=out_sh, rules=self.rules, **kw)
 
     def train(self, name, loss_fn, accum, inputs, baxes, flops, **kw) -> StepBundle:
         """A train bundle: ``_train_wrap`` under the rules; on a mesh the
         params, moments and batch placed as the reference's
         ``(psh, osh, bsh)``, the metrics replicated."""
-        step = _train_wrap(loss_fn, adamw.AdamWConfig(), accum, self.rules)
-        kw.update(accum=accum, loss_fn=loss_fn)
+        step = _train_wrap(loss_fn, self.ocfg, accum, self.rules)
+        one = _train_wrap(loss_fn, self.ocfg, 1, self.rules)
+
+        def unit_fn(params, opt, batch):
+            return one(params, opt, {k: _first_microbatch(v, accum) for k, v in batch.items()})
+        kw.update(accum=accum, loss_fn=loss_fn, hlo_scale=accum,
+                  unit_fn=unit_fn if accum > 1 else None)
         if self.rules is None:
             return StepBundle(name, step, inputs, flops, **kw)
         rep = self.rules.named(())
@@ -378,19 +415,28 @@ class _Sharded:
 
 
 def build_bundle(arch_name: str, shape_name: str, mesh=None, *,
-                 smoke: bool = False) -> StepBundle:
+                 smoke: bool = False,
+                 optimizer: adamw.AdamWConfig | None = None,
+                 profile_override: str | None = None,
+                 config_patch: dict | None = None,
+                 janus_alpha: float | None = None) -> StepBundle:
     """The bundle of ``arch_name`` at ``shape_name``; with ``mesh`` a sharded
-    bundle (see the module docstring)."""
+    bundle (see the module docstring). ``profile_override``/``config_patch``/
+    ``janus_alpha`` are the hill-climb knobs: another sharding profile,
+    model-config field overrides (e.g. fused_qkv, cache_quant_scale), and
+    the Janus ToMe schedule for ViT-family serving."""
     arch = get_arch(arch_name)
     shape = arch.shape(shape_name)
     if shape.skip_reason and not smoke:
         raise SkipShape(arch_name, shape_name, shape.skip_reason)
     cfg = config_for_shape(arch, shape, smoke=smoke)
+    if config_patch:
+        cfg = dataclasses.replace(cfg, **config_patch)
     train = shape.kind == "train"
     specs_tree = _specs_for(arch.family, cfg)
-    profile = arch.train_profile if train else arch.serve_profile
+    profile = profile_override or (arch.train_profile if train else arch.serve_profile)
     rules = None if mesh is None else rules_lib.make_rules(profile, mesh)
-    sharded = _Sharded(rules, specs_tree)
+    sharded = _Sharded(rules, specs_tree, optimizer or adamw.AdamWConfig())
     aparams = param_lib.abstract_params(specs_tree, dtype=getattr(cfg, "dtype", None))
     n_params = param_lib.param_count(specs_tree)
     aopt = adamw.init_state(aparams) if train else None
@@ -455,6 +501,17 @@ def build_bundle(arch_name: str, shape_name: str, mesh=None, *,
                "swin": lambda p, im: swin_lib.forward(p, cfg, im),
                "resnet": lambda p, im: resnet_lib.forward(p, cfg, im, train=train),
                }[arch.family]
+        janus_note = ""
+        if janus_alpha is not None:
+            if arch.family != "vit" or train:
+                raise ValueError("ToMe schedule applies to ViT-family serving")
+            sched_j = pruning_lib.make_schedule(
+                "exponential", janus_alpha, cfg.n_layers, cfg.num_tokens)
+
+            def fwd(p, im):
+                return vit_lib.forward_janus(p, cfg, im, sched_j)
+            janus_note = (f" janus_alpha={janus_alpha} "
+                          f"(merges {sum(sched_j)}/{cfg.num_tokens} tokens)")
         sh = shape if not smoke else ShapeSpec(shape.name, shape.kind,
                                                img_res=cfg.img_res, batch=2)
         batch = _vision_batch(sh)
@@ -483,7 +540,8 @@ def build_bundle(arch_name: str, shape_name: str, mesh=None, *,
 
         return sharded.bundle(
             name, step, (aparams, batch), (sharded.params, sharded.tree(batch, _VISION_AXES)),
-            sharded.spec((sh.batch, cfg.n_classes), ("batch", "act_vocab")), mflops)
+            sharded.spec((sh.batch, cfg.n_classes), ("batch", "act_vocab")), mflops,
+            notes=janus_note)
 
     # ----------------------------------------------------- diffusion families
     if arch.family == "dit":
@@ -505,18 +563,20 @@ def build_bundle(arch_name: str, shape_name: str, mesh=None, *,
 
         batch = {"labels": _meta((bsz,), torch.int32)}
 
-        def step(params, batch):
-            y = batch["labels"]
-            return diffusion.dit_sample(params, cfg, _sampler_generator(y.device), y, steps,
-                                        device=y.device)
+        def sample(n):
+            def step(params, batch):
+                y = batch["labels"]
+                return diffusion.dit_sample(params, cfg, _sampler_generator(y.device), y, n,
+                                            device=y.device)
+            return step
 
         tokens = bsz * cfg.num_tokens * steps
         return sharded.bundle(
-            name, step, (aparams, batch),
+            name, sample(steps), (aparams, batch),
             (sharded.params, sharded.tree(batch, ("batch",))),
             sharded.spec((bsz, lres, lres, cfg.latent_channels), ("batch", None, None, None)),
-            transformer_model_flops(n_params, tokens, False),
-            notes=f"sampler: {steps} denoise steps")
+            transformer_model_flops(n_params, tokens, False), unit_fn=sample(1),
+            hlo_scale=steps, notes=f"sampler: {steps} denoise steps")
 
     if arch.family == "flux":
         bsz = 2 if smoke else shape.batch
@@ -541,17 +601,20 @@ def build_bundle(arch_name: str, shape_name: str, mesh=None, *,
 
         batch = {"txt": txt, "vec": vec}
 
-        def step(params, batch):
-            dev = batch["txt"].device
-            return diffusion.flux_sample(params, cfg, _sampler_generator(dev), batch["txt"],
-                                         batch["vec"], steps, device=dev)
+        def sample(n):
+            def step(params, batch):
+                dev = batch["txt"].device
+                return diffusion.flux_sample(params, cfg, _sampler_generator(dev),
+                                             batch["txt"], batch["vec"], n, device=dev)
+            return step
 
         return sharded.bundle(
-            name, step, (aparams, batch),
+            name, sample(steps), (aparams, batch),
             (sharded.params, sharded.tree(batch, {"txt": ("batch", None, None),
                                                   "vec": ("batch", None)})),
             sharded.spec((bsz, lres, lres, cfg.latent_channels), ("batch", None, None, None)),
-            flux_fwd_flops(cfg, bsz) * steps, notes=f"sampler: {steps} denoise steps")
+            flux_fwd_flops(cfg, bsz) * steps, unit_fn=sample(1), hlo_scale=steps,
+            notes=f"sampler: {steps} denoise steps")
 
     raise ValueError(f"unknown family {arch.family}")
 

@@ -29,7 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import layers as L
-from repro_torch.sharding.rules import constrain
+from repro_torch.sharding.rules import constrain, hold_grad_placements
 from repro_torch.models.dit import patchify, unpatchify
 from repro_torch.models.param import layer_params, stack_specs
 
@@ -135,7 +135,8 @@ def _mlp_embed(params: dict, name: str, v: torch.Tensor) -> torch.Tensor:
 def _joint_attention(cfg: FluxConfig, q, k, v) -> torch.Tensor:
     """q, k, v [B, S, H, D] -> [B, S, d_model], the flash kernel on the card."""
     out = L.sdpa(q, k, v)
-    return out.reshape(*out.shape[:2], cfg.d_model)
+    # the gradient of the heads' output must come back in whole heads
+    return hold_grad_placements(out.reshape(*out.shape[:2], cfg.d_model))
 
 
 def _qkv(ap: dict, x: torch.Tensor, cfg: FluxConfig, pos: torch.Tensor):

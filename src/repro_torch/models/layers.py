@@ -17,11 +17,12 @@ import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint
 
-from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.kernels import ops
 from repro_torch.models.param import ParamSpec
-from repro_torch.sharding.rules import local_part, replicated, run_local
+from repro_torch.sharding.rules import (hold_grad_placements, local_part, redistribute,
+                                        replicated, run_local)
 
 # ---------------------------------------------------------------------------
 # specs
@@ -158,27 +159,34 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0)
 # ---------------------------------------------------------------------------
 
 
-def _whole_heads(y: torch.Tensor, n: int) -> torch.Tensor:
-    """``y`` [..., n * head_dim] with no mesh dim splitting its last dim
-    into parts that are not whole heads: where ``n`` does not divide by a
-    mesh dim sharding it, that dim is gathered (the weight divides, the
-    heads do not; XLA splits inside a head for the reference, DTensor cannot
-    view such a split as [..., n, head_dim])."""
-    if not isinstance(y, DTensor):
-        return y
-    last = y.ndim - 1
-    want = [Replicate() if isinstance(pl, Shard) and pl.dim == last
-            and n % y.device_mesh.size(i) else pl for i, pl in enumerate(y.placements)]
-    if want == list(y.placements):
-        return y
-    return y.redistribute(y.device_mesh, want)
+def _sums_reduced(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor ``t`` with every pending sum (``Partial``) reduced;
+    anything else as it is."""
+    if not isinstance(t, DTensor) or not any(isinstance(p, Partial) for p in t.placements):
+        return t
+    return redistribute(t, [Replicate() if isinstance(p, Partial) else p for p in t.placements])
+
+
+def _gathered(t: torch.Tensor, dim: int, n: int = 1) -> torch.Tensor:
+    """A DTensor ``t`` replicated on every mesh dim that splits its ``dim``
+    into parts ``n`` does not divide by (``n`` = 1: every split); anything
+    else as it is. ``n`` heads: where the weight divides and the heads do
+    not, XLA splits inside a head for the reference, and DTensor cannot view
+    such a split as [..., n, head_dim]."""
+    if not isinstance(t, DTensor):
+        return t
+    mesh = t.device_mesh
+    dim %= t.ndim
+    want = [Replicate() if isinstance(p, Shard) and p.dim == dim and n % mesh.size(i) else p
+            for i, p in enumerate(t.placements)]
+    return t if want == list(t.placements) else redistribute(t, want)
 
 
 def _proj(p: dict, name: str, x: torch.Tensor, n: int, head_dim: int) -> torch.Tensor:
     y = x @ p[f"w{name}"].to(x.dtype)
     if f"b{name}" in p:
         y = y + p[f"b{name}"].to(y.dtype)
-    return _whole_heads(y, n).reshape(*y.shape[:-1], n, head_dim)
+    return _gathered(y, -1, n).reshape(*y.shape[:-1], n, head_dim)
 
 
 def _qkv_proj(p: dict, x: torch.Tensor, n_heads: int, n_kv: int, head_dim: int):
@@ -206,7 +214,14 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     bottom-right aligned. Scores and softmax are f32 throughout, as the
     reference's flash kernel: the reference's jnp ``sdpa`` instead rounds
     scores and softmax weights to the activation dtype, so parity with it is
-    stated in f32."""
+    stated in f32.
+
+    The kernel runs whole sequences and whole heads: a DTensor operand that
+    holds a pending sum, or is split on its sequence dim (DTensor's
+    propagation splits a replicated token dim where the batch cannot be, as
+    at B=1), or on its heads into parts that are not whole, is reduced and
+    gathered first, as GSPMD does for the reference."""
+    q, k, v = (_gathered(_gathered(_sums_reduced(t), 1), 2, t.shape[2]) for t in (q, k, v))
     group = q.shape[2] // k.shape[2]
     if group > 1:
         k, v = (t.repeat_interleave(group, dim=2) for t in (k, v))
@@ -231,19 +246,38 @@ def _dequantize(cache: torch.Tensor, scale: float | None, dtype: torch.dtype) ->
     return (cache.float() * scale).to(dtype)
 
 
+def _local_range(t: DTensor, dim: int) -> tuple[int, int]:
+    """(first global index, count) of ``dim`` held by this rank: each mesh
+    dim sharding it splits what the ones before left, as ``torch.chunk``."""
+    mesh, coord = t.device_mesh, t.device_mesh.get_coordinate()
+    first, n = 0, t.shape[dim]
+    for i, p in enumerate(t.placements):
+        if isinstance(p, Shard) and p.dim == dim:
+            chunk = -(-n // mesh.size(i))
+            at = min(coord[i] * chunk, n)
+            first, n = first + at, min(chunk, n - at)
+    return first, n
+
+
 def cache_write(cache: torch.Tensor, value: torch.Tensor, start: int) -> None:
     """``cache[:, start:start + S] = value`` in place, for a cache [B, S_max,
     n_kv, hd] and a value [B, S, n_kv, hd]. On a DTensor cache the write runs
     on this rank's local tensors (the value brought to the cache's
-    placements), so it lands in the cache's own storage; a cache sharded on
-    its sequence dim over more than one rank raises."""
+    placements), so it lands in the cache's own storage. Where the cache's
+    sequence dim is split (the rules' ``act_seq_kv``), the value comes whole
+    on that dim and each rank writes the part that falls in its own slots."""
     if isinstance(cache, DTensor):
         mesh = cache.device_mesh
-        if any(mesh.size(i) > 1 and isinstance(p, Shard) and p.dim == 1
-               for i, p in enumerate(cache.placements)):
-            raise ValueError("cache_write: the cache is sharded on its sequence dim; "
-                             "a write needs batch or kv-head sharding")
-        value = local_part(value, mesh, cache.placements)
+        seq = [mesh.size(i) > 1 and isinstance(p, Shard) and p.dim == 1
+               for i, p in enumerate(cache.placements)]
+        want = [Replicate() if s else p for s, p in zip(seq, cache.placements)]
+        value = local_part(value, mesh, want)
+        if any(seq):
+            first, n = _local_range(cache, 1)
+            lo, hi = max(start, first), min(start + value.shape[1], first + n)
+            if lo < hi:
+                cache.to_local()[:, lo - first:hi - first] = value[:, lo - start:hi - start]
+            return
         cache = cache.to_local()
     cache[:, start:start + value.shape[1]] = value
 
@@ -295,8 +329,12 @@ def attention(p: dict, x: torch.Tensor, *, n_heads: int, n_kv: int, head_dim: in
         new_cache = (k_cache, v_cache)
         if kv_len is None:
             kv_len = torch.full((b,), idx + 1, dtype=torch.int32, device=x.device)
-        kc, vc = (_dequantize(c, cache_quant_scale, q.dtype) for c in (k_cache, v_cache))
-        out = ops.decode_attention(q[:, 0], kc, vc, kv_len)
+        # the decode kernel reads a whole cache axis: a split one is gathered
+        kc, vc = (_dequantize(_gathered(c, 1), cache_quant_scale, q.dtype)
+                  for c in (k_cache, v_cache))
+        # a rank's query heads must read its own kv heads: where the kv heads
+        # do not divide by a mesh dim splitting the query heads, gather those
+        out = ops.decode_attention(_gathered(q[:, 0], 1, n_kv), kc, vc, kv_len)
         if return_metric:
             k = kc
     else:
@@ -304,7 +342,8 @@ def attention(p: dict, x: torch.Tensor, *, n_heads: int, n_kv: int, head_dim: in
             new_cache = tuple(_quantize(t, cache_quant_scale, t.dtype) for t in (k, v))
         out = sdpa(q, k, v, bias=bias, causal=causal)
 
-    y = out.reshape(b, s, n_heads * head_dim) @ p["wo"].to(out.dtype)
+    # the gradient of the heads' output must come back in whole heads
+    y = hold_grad_placements(out.reshape(b, s, n_heads * head_dim)) @ p["wo"].to(out.dtype)
     if "bo" in p:
         y = y + p["bo"].to(y.dtype)
     if return_metric:

@@ -17,10 +17,21 @@ mesh's groups):
   4. scatter back -> reverse all-to-all -> combine with the locally kept
      gates; all-gather the token slices back across "model".
 
-The aux loss is averaged over the "model" and data groups. Serving only:
-no autograd through the collectives. ``collectives`` counts the
-collective calls this module makes (three all-to-alls, one all-gather and
-one all-reduce a mesh axis, per layer call that does not fall back).
+The aux loss is averaged over the "model" and data groups.
+
+Differentiable: the float exchanges go through autograd collectives
+(``_AllToAll``, whose backward is the reverse all-to-all; ``_AllGather``,
+whose backward is a reduce-scatter; ``_AllReduce``, whose backward is an
+all-reduce: ``torch.distributed.nn.functional``'s are deprecated, and its
+all-gather's backward fails on a gloo subgroup), and the gradients are the
+reference's ``jax.grad`` of its ``shard_map`` (``check_rep=False``): there
+the cotangent of an output replicated over ``n`` ranks (``y`` over
+"model", ``aux`` over every axis) is divided by ``n`` before the body's
+transpose (``_replicated_out``), and an input's gradient is summed over the
+ranks it is replicated on (the ``Partial`` gradient placements of
+``apply``'s local parts). ``collectives`` counts the collective calls this
+module makes in the forward (three all-to-alls, one all-gather and one
+all-reduce a mesh axis, per layer call that does not fall back).
 """
 from __future__ import annotations
 
@@ -29,7 +40,7 @@ import math
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
-from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.moe import MoEConfig, _positions_in_expert
@@ -41,12 +52,87 @@ collectives = 0
 def _all_to_all(x: torch.Tensor, group) -> torch.Tensor:
     """Chunk j of dim 0 goes to rank j of ``group``; chunk j of the result
     came from rank j (the reference's untiled ``all_to_all`` on a leading
-    [tp, ...] axis)."""
+    [tp, ...] axis). Differentiable for a float ``x``."""
     global collectives
-    out = torch.empty_like(x)
-    dist.all_to_all_single(out, x.contiguous(), group=group)
     collectives += 1
-    return out
+    return _AllToAll.apply(x, group)
+
+
+class _AllToAll(torch.autograd.Function):
+    """``dist.all_to_all_single`` of ``x``'s equal chunks; the backward is
+    the reverse all-to-all of the gradient."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        out = torch.empty_like(x)
+        dist.all_to_all_single(out, x.contiguous(), group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        out = torch.empty_like(g)
+        dist.all_to_all_single(out, g.contiguous(), group=ctx.group)
+        return out, None
+
+
+class _AllGather(torch.autograd.Function):
+    """The group's ``x`` concatenated along dim 0 in rank order; the
+    backward sums each rank's slice of the gradient over the group (a
+    reduce-scatter, here one all-to-all and a sum, which every backend
+    has)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+        dist.all_gather(parts, x.contiguous(), group=group)
+        return torch.cat(parts, dim=0)
+
+    @staticmethod
+    def backward(ctx, g):
+        recv = torch.empty_like(g)
+        dist.all_to_all_single(recv, g.contiguous(), group=ctx.group)
+        n = dist.get_world_size(ctx.group)
+        return recv.reshape(n, g.shape[0] // n, *g.shape[1:]).sum(dim=0), None
+
+
+class _AllReduce(torch.autograd.Function):
+    """The sum of ``x`` over the group; the backward sums the gradient over
+    it too (the transpose of a psum)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        y = x.clone()
+        dist.all_reduce(y, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+class _ReplicatedOut(torch.autograd.Function):
+    """Identity; the gradient divided by ``n``, the count of ranks the
+    output is replicated on (the reference's shard_map transpose)."""
+
+    @staticmethod
+    def forward(ctx, x, n):
+        ctx.n = n
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g / ctx.n, None
+
+
+def _replicated_out(x: torch.Tensor, n: int) -> torch.Tensor:
+    if n == 1 or not (torch.is_grad_enabled() and x.requires_grad):
+        return x
+    return _ReplicatedOut.apply(x, n)
 
 
 def route(logits: torch.Tensor):
@@ -119,20 +205,27 @@ def _local_moe(cfg: MoEConfig, tp: int, shard: int, model_group, dp_groups, x, r
     y_my = torch.einsum("tkd,tk->td", y_slot, gates.to(x.dtype))
 
     # ---- reassemble the replicated token block across "model"
-    parts = [torch.empty_like(y_my) for _ in range(tp)]
-    dist.all_gather(parts, y_my.contiguous(), group=model_group)
+    y = _replicated_out(_AllGather.apply(y_my, model_group), tp)
     collectives += 1
-    y = torch.cat(parts, dim=0)
 
     # aux loss: the per-rank estimate averaged over every mesh axis
     frac = F.one_hot(experts[:, 0], cfg.n_experts).float().mean(dim=0)
     aux = cfg.n_experts * torch.sum(frac * probs.mean(dim=0))
     n = 1
     for group in (model_group, *dp_groups):
-        dist.all_reduce(aux, group=group)
+        aux = _AllReduce.apply(aux, group)
         collectives += 1
         n *= dist.get_world_size(group)
-    return y, aux / n
+    return y, _replicated_out(aux / n, n)
+
+
+def _local(t: torch.Tensor, mesh, placements, grad_placements) -> torch.Tensor:
+    """``local_part`` of ``t``; a plain ``t`` that requires grad is first
+    taken as a replicated DTensor, so that its gradient is the sum of every
+    rank's."""
+    if not isinstance(t, DTensor) and torch.is_grad_enabled() and t.requires_grad:
+        t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    return local_part(t, mesh, placements, grad_placements)
 
 
 def apply(params: dict, cfg: MoEConfig, x: torch.Tensor, mesh, model_axis: str = "model"):
@@ -152,10 +245,13 @@ def apply(params: dict, cfg: MoEConfig, x: torch.Tensor, mesh, model_axis: str =
     names = list(shape)
     tokens = tuple(Shard(0) if a in dp_axes else Replicate() for a in names)
     experts = tuple(Shard(0) if a == model_axis else Replicate() for a in names)
-    xf = x.reshape(t, d)
-    x_loc = local_part(xf, mesh, tokens)
-    w = [local_part(params[n], mesh, experts) for n in ("w_gate", "w_up", "w_down")]
-    router = local_part(params["router"], mesh, (Replicate(),) * len(names))
+    # each input's gradient sums over the ranks it is replicated on
+    on_model = tuple(Partial() if a == model_axis else p for a, p in zip(names, tokens))
+    on_data = tuple(Partial() if a in dp_axes else p for a, p in zip(names, experts))
+    x_loc = _local(x.reshape(t, d), mesh, tokens, on_model)
+    w = [_local(params[n], mesh, experts, on_data) for n in ("w_gate", "w_up", "w_down")]
+    router = _local(params["router"], mesh, (Replicate(),) * len(names),
+                    (Partial(),) * len(names))
     shard = mesh.get_local_rank(model_axis)
     y, aux = _local_moe(cfg, tp, shard, mesh.get_group(model_axis),
                         [mesh.get_group(a) for a in dp_axes], x_loc, router, *w)

@@ -203,6 +203,15 @@ class _Constrain(torch.autograd.Function):
         return redistribute(g, ctx.placements), None
 
 
+def hold_grad_placements(x: torch.Tensor) -> torch.Tensor:
+    """``x`` as it is; under autograd a DTensor's gradient is brought to
+    ``x``'s placements (where DTensor's backward would carry a split it
+    cannot view, such as one inside a head, into the op before)."""
+    if isinstance(x, DTensor) and torch.is_grad_enabled() and x.requires_grad:
+        return _Constrain.apply(x, tuple(x.placements))
+    return x
+
+
 def spec_placements(spec: tuple, shape, sizes: Mapping[str, int]) -> tuple:
     """The DTensor placements, one per mesh dim of ``sizes`` ({axis: size}
     in mesh order), of a ``spec_for`` spec of a tensor of ``shape``. A
