@@ -41,6 +41,14 @@ each failing the run on any failed check:
             the calls queued behind a sleep kernel (the card's time per call,
             the host's per-call overhead hidden) and back to back as queued
             by the host;
+   bench:   the port's benches (``repro_torch.benchmarks``): the execute
+            bench (per_stream, stacked_exact, bucketed_e1/e2/e4 at N=16, 2
+            reps) at the reference's 50-token ViT in f32 (its structure
+            against the committed ``benchmarks/baselines/BENCH_execute.json``)
+            and at ViT-L@384 in bf16 (split 18, within BATCH_BF16): frames/s,
+            traces, parity, and launches equal to what the geometry implies;
+            then every ``kernel_bench`` row (kernel, plain version, library
+            call, bound);
 4. path:    ViT-L@384 bf16 (random weights from a seeded generator) serves a
             6-frame 4G-driving trace through ``JanusEngine(execute=True)`` and
             one split inference at α=0.5, mid split; the kernels' launch
@@ -169,24 +177,16 @@ import sys
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+try:  # the timing helpers, peaks and kernel tolerances are the package's
+    from repro_torch.benchmarks.execute_bench import BATCH_BF16
+    from repro_torch.benchmarks.kernel_bench import (DECODE_BF16, DECODE_F32, FLASH_BF16,
+                                                     FLASH_BF16_REL, FLASH_F32, TOME_MAX,
+                                                     Case, flash_close, tome_close)
+    from repro_torch.benchmarks.timing import PEAK_BF16, bound, time_cold_ms, time_ms
+except ModuleNotFoundError:
+    sys.exit(f"chip_smoke: no src/repro_torch beside {__file__}; run it from a checkout")
 
-# H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, f32 outside
-# the tensor cores, HBM3 bandwidth.
-PEAK_BF16 = 989e12
-PEAK_F32 = 67e12
-PEAK_BYTES = 3.35e12
-
-FLASH_F32 = dict(atol=2e-5, rtol=1e-4)
-FLASH_BF16 = dict(atol=2e-2, rtol=0.0)
-# bf16 flash, beside FLASH_BF16: max|kernel - plain| <= FLASH_BF16_REL * max|plain|.
-# At S in the thousands an output is ~sqrt(e/S) ~ 0.025, so 2e-2 alone is
-# loose; each long-sequence case also shows that a plainly wrong kernel (one
-# key tile dropped, one query tile wrong, the bias ignored) reads above it.
-FLASH_BF16_REL = 3e-2
-TOME_MAX = dict(atol=2e-5, rtol=1e-3)   # tests/test_kernels.py:29-30
-DECODE_F32 = dict(atol=2e-5, rtol=1e-4)  # tests/test_kernels.py:113
-DECODE_BF16 = dict(atol=2e-2, rtol=0.0)  # f32 math on both sides, one rounding of the output
-BATCH_BF16 = dict(atol=0.1, rtol=0.05)  # bucketed vs exact logits, bf16, 6 layers
 PARITY_F32 = dict(atol=1e-3, rtol=1e-3)  # kernels vs plain, f32 whole paths (ViT 24, LM 30, MoE 4 layers)
 
 
@@ -233,7 +233,6 @@ def main() -> int:
         print(f"chip_smoke: no src/repro_torch beside {__file__}; run it from a checkout",
               file=sys.stderr)
         return 2
-    sys.path.insert(0, str(ROOT / "src"))
     t_start = time.perf_counter()
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -261,9 +260,14 @@ def main() -> int:
 
     from repro_torch.runtime.device import parity_numerics
     parity_numerics()  # f32 plain versions and f32 phases must not use TF32
-    rows = kernel_phase(torch) + decode_kernel_phase(torch)
+    from repro_torch.benchmarks import kernel_bench
+    t0 = time.perf_counter()
+    bench = kernel_bench.measure()  # [bench] prints these; [kernels] takes its path shapes' times
+    bench_s = time.perf_counter() - t0
+    rows = kernel_phase(torch, bench) + decode_kernel_phase(torch, bench)
+    paths = bench_phase(torch, bench, bench_s)
     model = _vit_l(torch, torch.bfloat16)
-    paths = {"vit": path_phase(torch, *model), "vit_batch": batch_phase(torch, *model)}
+    paths.update(vit=path_phase(torch, *model), vit_batch=batch_phase(torch, *model))
     trace_phase(torch, *model)
     paths["fleet"], paths["fleet_cli"], run_a = fleet_phase(torch, *model)
     paths["mesh_fleet"] = mesh_phase(torch, *model, run_a)
@@ -352,36 +356,6 @@ def read_counts() -> dict[str, int]:
             "decode_attention": decode_attention.launches - decode_attention.launches_mma}
 
 
-def time_ms(torch, fn, iters: int = 30, queued: bool = False) -> float:
-    """Mean ms per call over ``iters`` back-to-back calls, CUDA events.
-
-    With ``queued`` the calls are enqueued behind a sleep kernel that
-    outlasts the host's enqueueing, so the events time the card alone: the
-    host's per-call overhead (Python, allocation, the launch) is hidden. If
-    the sleep ended before the host had enqueued every call, it is doubled
-    and the run repeated."""
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    cycles = 20_000_000  # ~10 ms at the H100's clock
-    for _ in range(6):
-        if queued:
-            torch.cuda._sleep(cycles)
-            slept = torch.cuda.Event()
-            slept.record()
-        start.record()
-        for _ in range(iters):
-            fn()
-        end.record()
-        if not queued or not slept.query():  # the card was still asleep: all queued
-            end.synchronize()
-            return start.elapsed_time(end) / iters
-        end.synchronize()
-        cycles *= 2
-    fail("time_ms: the host could not queue the calls within the sleep")
-
-
 def _device_times(torch, fn, iters: int) -> dict[str, list[float]]:
     """µs on the card of every launch of each kernel that ``fn`` launches
     (the port's by their names, others by a prefix), by torch.profiler over
@@ -419,30 +393,6 @@ def fmt_us(times: dict[str, float]) -> str:
     return ", ".join(f"{name} {us:.2f} us" for name, us in times.items())
 
 
-def time_cold_ms(torch, fn, iters: int = 20, flush_mb: int = 256) -> float:
-    """Mean ms per call with the L2 cache flushed before each call: a
-    ``flush_mb`` MB buffer is written outside the timed events (that write
-    also outlasts the host's enqueueing of the call)."""
-    buf = torch.empty(flush_mb << 20, dtype=torch.uint8, device="cuda")
-    fn()
-    torch.cuda.synchronize()
-    events = []
-    for _ in range(iters):
-        buf.fill_(1)
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        events.append((start, end))
-    torch.cuda.synchronize()
-    return sum(s.elapsed_time(e) for s, e in events) / iters
-
-
-def bound(flops: float, nbytes: float, peak: float) -> tuple[float, str]:
-    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
-    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
-
-
 def cuda_core_flash(torch, flash_mod, q, k, v, bias, causal):
     """The CUDA-core flash kernel on a bf16 call that ``kernel_for`` routes to
     the tensor-core one: its C entry called directly, for a side-by-side time
@@ -478,7 +428,19 @@ def cuda_core_decode(torch, decode_mod, q, k, v, lengths):
 
 # --------------------------------------------------------------------- kernels
 
-def kernel_phase(torch) -> list[dict]:
+def bench_row(bench: list[dict], case) -> dict | None:
+    """kernel_bench's record of the same call as ``case`` (a
+    ``kernel_bench.Case``), or None: [kernels] takes such a call's times from
+    it rather than timing the call a second time."""
+    for r in bench:
+        if (r["kernel"], tuple(r["shape"]), r["dtype"], r["causal"], r["bias"],
+                r["length"]) == (case.kernel(), case.shape, str(case.dtype)[6:], case.causal,
+                                 case.bias, case.length):
+            return r
+    return None
+
+
+def kernel_phase(torch, bench: list[dict]) -> list[dict]:
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as flash_mod
     from repro_torch.kernels import ref
@@ -589,36 +551,40 @@ def kernel_phase(torch) -> list[dict]:
         shapes += [(label, b, hh, ss, dd, False, with_bias)
                    for label, b, hh, ss, dd, with_bias in VISION_FLASH]
         for label, b, hh, ss, dd, causal, with_bias in shapes:
+            case = Case(label, "flash", (b, hh, ss, dd), dtype, causal=causal, bias=with_bias)
+            check(case.kernel() == kernel, f"{kernel} timing route")
             q, k, v, bias = flash_inputs(b, dtype, ss, ss, 0, hh, dd)
             bias = bias if with_bias else None
-            check(flash_mod.kernel_for(dtype, dd) == kernel, f"{kernel} timing route")
-            iters = 10 if causal or ss > 1024 else 30
-            ms = time_ms(torch, lambda: flash_mod.flash_attention(q, k, v, bias=bias,
-                                                                  causal=causal), iters)
-            plain = time_ms(torch, lambda: ref.flash_attention_ref(q, k, v, bias=bias,
-                                                                   causal=causal), iters)
-            mask = None if bias is None else bias[:, None, None, :].to(q.dtype)
-            lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
-                q, k, v, attn_mask=mask, is_causal=causal), iters)
-            # causal: S * (S + 1) / 2 (query, key) pairs of 4 * D flops
-            pairs = ss * (ss + 1) / 2 if causal else ss * ss
-            nbytes = 4 * q.numel() * q.element_size() + (0 if bias is None else bias.numel() * 4)
-            b_ms, b_by = bound(4.0 * b * hh * dd * pairs, nbytes,
-                               PEAK_BF16 if dtype == torch.bfloat16 else PEAK_F32)
+            shared = bench_row(bench, case)
+            if shared is not None:  # kernel_bench timed this call, queued
+                ms, plain, lib = shared["ms"], shared["plain_ms"], shared["library_ms"]
+                timing = f"kernel_bench {shared['label']}, queued"
+            else:
+                iters = 10 if causal or ss > 1024 else 30
+                ms = time_ms(lambda: flash_mod.flash_attention(q, k, v, bias=bias,
+                                                               causal=causal), iters)
+                plain = time_ms(lambda: ref.flash_attention_ref(q, k, v, bias=bias,
+                                                                causal=causal), iters)
+                mask = None if bias is None else bias[:, None, None, :].to(q.dtype)
+                lib = time_ms(lambda: F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=mask, is_causal=causal), iters)
+                timing = "back to back"
+            b_ms, b_by = case.bound()
             row = dict(shape=f"{label}: q,k,v [{b},{hh},{ss},{dd}] {str(dtype)[6:]}"
                              + (", causal" if causal else "")
                              + (f", bias [{b},{ss}]" if with_bias else ""),
-                       ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms, bound_by=b_by)
+                       ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms, bound_by=b_by,
+                       timing=timing)
             extra = ""
             if kernel == flash_mod.MMA:  # the CUDA-core kernel on the same bf16 call
-                row["cuda_core_ms"] = time_ms(torch, lambda: cuda_core_flash(
+                row["cuda_core_ms"] = time_ms(lambda: cuda_core_flash(
                     torch, flash_mod, q, k, v, bias, causal), 10)
                 extra = f", CUDA-core kernel {row['cuda_core_ms']:.4f} ms"
-            print(f"[kernels] {kernel} {row['shape']} timing: kernel {ms:.4f} ms, plain "
+            print(f"[kernels] {kernel} {row['shape']} timing ({timing}): kernel {ms:.4f} ms, plain "
                   f"{plain:.4f} ms, sdpa {lib:.4f} ms ({ms / lib:.2f}x), bound {b_ms:.4f} ms "
                   f"({b_by}){extra}")
             out.append(row)
-            del q, k, v, bias, mask
+            del q, k, v, bias
         return out
 
     rows = []
@@ -671,7 +637,7 @@ def kernel_phase(torch) -> list[dict]:
             tome_err = max(tome_err, err)
 
     one = torch.zeros(1, device=dev)
-    floor = time_ms(torch, lambda: one.add_(1), queued=True)
+    floor = time_ms(lambda: one.add_(1), queued=True)
     print(f"[kernels] launch floor: a 1-element add, queued: {floor:.4f} ms")
     tome_timings = []
     for b, na, nb in TOME_SHAPES:
@@ -683,16 +649,20 @@ def kernel_phase(torch) -> list[dict]:
         def library():
             return torch.bmm(a, bb.transpose(1, 2)).max(-1)
 
-        ms, lib = time_ms(torch, kernel, queued=True), time_ms(torch, library, queued=True)
-        plain = time_ms(torch, lambda: ref.tome_scores_ref(a, bb), queued=True)
-        eager, lib_eager = time_ms(torch, kernel), time_ms(torch, library)
+        case = Case(f"B={b}", "tome", (b, na, nb, d), torch.float32)
+        shared = bench_row(bench, case)
+        if shared is not None:  # kernel_bench timed this call, queued
+            ms, plain, lib = shared["ms"], shared["plain_ms"], shared["library_ms"]
+        else:
+            ms, lib = time_ms(kernel, queued=True), time_ms(library, queued=True)
+            plain = time_ms(lambda: ref.tome_scores_ref(a, bb), queued=True)
+        eager, lib_eager = time_ms(kernel), time_ms(library)
         dev_us, lib_us = device_us(torch, kernel), device_us(torch, library)
         b1 = bb[:, :1].contiguous()  # one column: what a call costs beside its FMAs
         fixed_us = device_us(torch, lambda: tome_mod.tome_scores(a, b1))
-        flops = 2.0 * b * na * nb * d
-        nbytes = (a.numel() + bb.numel()) * 4 + b * na * 8
-        b_ms, b_by = bound(flops, nbytes, PEAK_F32)
-        print(f"[kernels] tome_scores B={b} Na={na} Nb={nb} D={d} f32 timing, queued: kernel "
+        b_ms, b_by = case.bound()
+        print(f"[kernels] tome_scores B={b} Na={na} Nb={nb} D={d} f32 timing, queued"
+              + (f" (kernel_bench {shared['label']})" if shared else "") + ": kernel "
               f"{ms:.4f} ms, plain {plain:.4f} ms, bmm+max {lib:.4f} ms ({ms / lib:.2f}x), "
               f"bound {b_ms:.6f} ms ({b_by}); back to back from the host: kernel {eager:.4f} "
               f"ms, bmm+max {lib_eager:.4f} ms; on the card per launch (profiler): "
@@ -715,7 +685,7 @@ def kernel_phase(torch) -> list[dict]:
     return rows
 
 
-def decode_kernel_phase(torch) -> list[dict]:
+def decode_kernel_phase(torch, bench: list[dict]) -> list[dict]:
     """decode_attention's two kernels against the plain version (lengths 1,
     ragged inside a tile, full; group 12 as starcoder2-3b, 2 as internlm2, 8
     as qwen3-moe and 3 as granite-moe; D 64 and 128): bf16 on the
@@ -789,31 +759,34 @@ def decode_kernel_phase(torch) -> list[dict]:
                                                       enable_gqa=True)
 
             lib_err = (library()[:, :, 0].float() - exp.float()).abs().max().item()
-            ms, lib = time_ms(torch, wrapper, queued=True), time_ms(torch, library, queued=True)
-            plain = time_ms(torch, lambda: ref.decode_attention_ref(q, k, v, lens), queued=True)
+            case = Case(shape, "decode", (b, hq, hkv, s, dd), dtype, length=n)
+            shared = bench_row(bench, case)
+            if shared is not None:  # kernel_bench timed this call, queued
+                ms, plain, lib = shared["ms"], shared["plain_ms"], shared["library_ms"]
+            else:
+                ms, lib = time_ms(wrapper, queued=True), time_ms(library, queued=True)
+                plain = time_ms(lambda: ref.decode_attention_ref(q, k, v, lens), queued=True)
             row = dict(shape=shape, ms=ms, plain_ms=plain, library_ms=lib,
-                       host_ms=time_ms(torch, wrapper), library_host_ms=time_ms(torch, library),
+                       host_ms=time_ms(wrapper), library_host_ms=time_ms(library),
                        device_us=device_us(torch, wrapper))
-            # the valid cache read once, q read and the output written once
-            nbytes = (2 * b * n * hkv * dd + 2 * q.numel()) * q.element_size() + b * 4
-            row["bound_ms"], row["bound_by"] = bound(
-                4.0 * b * hq * n * dd, nbytes,
-                PEAK_BF16 if dtype == torch.bfloat16 else PEAK_F32)
+            row["bound_ms"], row["bound_by"] = case.bound()
             extra = ""
             if kernel == decode_mod.MMA:  # the CUDA-core kernel on the same bf16 call
-                row["cuda_core_ms"] = time_ms(torch, lambda: cuda_core_decode(
+                row["cuda_core_ms"] = time_ms(lambda: cuda_core_decode(
                     torch, decode_mod, q, k, v, lens), queued=True)
                 extra = f", CUDA-core kernel {row['cuda_core_ms']:.4f} ms"
                 if (s, hq, hkv) == (LM_CAPACITY, 24, 2):
-                    row["cold_l2_ms"] = time_cold_ms(torch, wrapper)
-                    row["cuda_core_cold_l2_ms"] = time_cold_ms(torch, lambda: cuda_core_decode(
+                    row["cold_l2_ms"] = time_cold_ms(wrapper)
+                    row["cuda_core_cold_l2_ms"] = time_cold_ms(lambda: cuda_core_decode(
                         torch, decode_mod, q, k, v, lens))
                     extra += (f"; L2 flushed before each call: kernel {row['cold_l2_ms']:.4f} "
                               f"ms, CUDA-core kernel {row['cuda_core_cold_l2_ms']:.4f} ms")
-            print(f"[kernels] {kernel} {shape} timing, queued: kernel {ms:.4f} ms, plain "
+            print(f"[kernels] {kernel} {shape} timing, queued"
+                  + (f" (kernel_bench {shared['label']})" if shared else "")
+                  + f": kernel {ms:.4f} ms, plain "
                   f"{plain:.4f} ms, sdpa(enable_gqa, mask) {lib:.4f} ms ({ms / lib:.2f}x; "
                   f"max|sdpa-plain|={lib_err:.2e}), bound {row['bound_ms']:.4f} ms "
-                  f"({row['bound_by']}, {nbytes / 1e6:.1f} MB), splits "
+                  f"({row['bound_by']}, {case.nbytes() / 1e6:.1f} MB), splits "
                   f"{decode_mod.n_splits(b, hq, hkv, s, kernel)}{extra}; back to back from the "
                   f"host: kernel {row['host_ms']:.4f} ms, sdpa {row['library_host_ms']:.4f} ms; "
                   f"on the card per launch (profiler): {fmt_us(row['device_us'])}")
@@ -1011,6 +984,179 @@ def batch_phase(torch, cfg, params, images) -> dict[str, int]:
     check(ok, "bucketed cloud batch disagrees with the exact one")
     check(n_padded <= len(edges), "cloud_padded traces exceed the edge count")
     return {name: counts[name] + bucket_counts[name] for name in counts}
+
+
+# ----------------------------------------------------------------------- bench
+
+def recording(module, name: str, calls: dict, key=None):
+    """A context in which ``module.name`` runs as before and records its
+    calls: ``calls[k] = [args, kwargs, n]``, the first call with the key
+    ``k = key(args, kwargs)`` and how many calls had it. With no ``key``
+    every call is kept, under its index."""
+    fn = getattr(module, name)
+
+    def rec(*args, **kwargs):
+        k = len(calls) if key is None else key(args, kwargs)
+        if k in calls:
+            calls[k][2] += 1
+        else:
+            calls[k] = [args, kwargs, 1]
+        return fn(*args, **kwargs)
+    return swapped_in(module, name, rec)
+
+
+def flash_signature(args, kwargs) -> tuple:
+    """What picks a flash_attention call's kernel and code path: the shapes,
+    the dtype, which of bias and kv_len it has, and causal."""
+    q, k = args[:2]
+    return (tuple(q.shape), tuple(k.shape), q.dtype, kwargs.get("bias") is not None,
+            kwargs.get("kv_len") is not None, kwargs.get("causal", False))
+
+
+def _tome_args(args, kwargs):
+    return (*args, kwargs.get("nb_len"))[:3]
+
+
+def tome_signature(args, kwargs) -> tuple:
+    a, b, nb_len = _tome_args(args, kwargs)
+    return tuple(a.shape), tuple(b.shape), nb_len is not None
+
+
+def check_flash_calls(label: str, calls: dict) -> tuple[int, float]:
+    """Each recorded flash_attention call against its plain version on its
+    inputs (the kernel launched again; the counts were read before):
+    ``kernel_bench.flash_close``'s limits. Returns (calls, max_abs_err)."""
+    from repro_torch.kernels import flash_attention as flash_mod
+    from repro_torch.kernels import ref
+    worst = 0.0
+    for (q, k, v), kwargs, _ in calls.values():
+        err, ok = flash_close(flash_mod.flash_attention(q, k, v, **kwargs),
+                              ref.flash_attention_ref(q, k, v, **kwargs))
+        check(ok, f"{label} flash_attention {flash_signature((q, k), kwargs)}: "
+                  f"max_abs_err {err:.3e}")
+        worst = max(worst, err)
+    return sum(n for *_, n in calls.values()), worst
+
+
+def check_tome_calls(label: str, calls: dict) -> tuple[int, float]:
+    """Each recorded tome_scores call against its plain version on its
+    inputs: ``kernel_bench.tome_close``'s limits. Returns (calls,
+    max_abs_err)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import tome_scores as tome_mod
+    worst = 0.0
+    for args, kwargs, _ in calls.values():
+        a, b, nb_len = _tome_args(args, kwargs)
+        err, ok = tome_close(a, b, nb_len, tome_mod.tome_scores(a, b, nb_len),
+                             ref.tome_scores_ref(a, b, nb_len))
+        check(ok, f"{label} tome_scores a {tuple(a.shape)} b {tuple(b.shape)} nb_len "
+                  f"{nb_len is not None}: max_abs_err {err:.3e}")
+        worst = max(worst, err)
+    return sum(n for *_, n in calls.values()), worst
+
+
+def bench_phase(torch, bench: list[dict], bench_s: float) -> dict[str, dict[str, int]]:
+    """The port's benches on the card: ``execute_bench.run`` at the
+    reference's 50-token ViT (f32) and at ViT-L@384 (bf16), N=16 and 2 reps
+    each, with the launch counters zeroed before and read after each run and
+    held against what the geometry implies, and the first flash_attention
+    and tome_scores call of each distinct shape of the run held against its
+    plain version; then every ``kernel_bench`` row (``bench``, measured at
+    the start of this run in ``bench_s`` seconds)."""
+    from repro_torch.benchmarks import execute_bench
+    from repro_torch.core import pruning
+    from repro_torch.core.bucketing import BucketingConfig, BucketTable
+    from repro_torch.kernels import flash_attention as flash_mod
+    from repro_torch.kernels import tome_scores as tome_mod
+
+    t0 = time.perf_counter()
+    n, reps, edges = 16, 2, (1, 2, 4)
+    baseline = json.loads((ROOT / "benchmarks" / "baselines" / "BENCH_execute.json").read_text())
+    paths = {}
+    for name in ("vit50", "vit-l384"):
+        model = execute_bench.MODELS[name]
+        cfg, split = model.cfg, model.split
+        flash_calls, tome_calls = {}, {}
+        zero_counts()
+        with recording(flash_mod, "flash_attention", flash_calls, flash_signature), \
+                recording(tome_mod, "tome_scores", tome_calls, tome_signature):
+            art = execute_bench.run(n, reps, edges, model_name=name, device="cuda")
+        counts = read_counts()
+        scheds = [tuple(pruning.make_schedule("exponential", model.alphas[i % len(model.alphas)],
+                                              cfg.n_layers, cfg.num_tokens)) for i in range(n)]
+        entry = [pruning.token_counts(cfg.num_tokens, sc)[split] for sc in scheds]
+        suffix_merges = sum(1 for r in scheds[0][split:] if r > 0)
+        # stacked cloud forwards a round: one a plan, one a distinct geometry,
+        # one a bucket edge reached
+        forwards = {"per_stream": n, "stacked_exact": len(set(zip(scheds, entry)))}
+        for k in edges:
+            table = BucketTable.build(cfg, model.alphas, config=BucketingConfig(n_edges=k))
+            forwards[f"bucketed_e{k}"] = len({table.edge_for(split, c) for c in entry})
+        cloud_forwards = (reps + 1) * sum(forwards.values())
+        exp_flash = n * split + cloud_forwards * (cfg.n_layers - split)
+        exp_tome = sum(1 for sc in scheds for r in sc[:split] if r > 0) \
+            + cloud_forwards * suffix_merges
+        kernel = "flash_attention_mma" if cfg.dtype == torch.bfloat16 else "flash_attention"
+        other = "flash_attention" if kernel == "flash_attention_mma" else "flash_attention_mma"
+        for r in art["modes"]:
+            print(f"[bench] execute {name} {r['mode']}: episode {r['episode_frames_per_s']:.1f} "
+                  f"frames/s ({r['episode_wall_s'] * 1e3:.2f} ms), steady "
+                  f"{r['steady_frames_per_s']:.1f} frames/s ({r['steady_wall_s'] * 1e3:.3f} ms), "
+                  f"first round {r['compile_s'] * 1e3:.2f} ms, traces {r['traces']}, "
+                  f"{r['dispatches_per_round']} forwards a round, parity "
+                  f"{r['parity_max_abs_diff']:.3e} {'ok' if r['parity_ok'] else 'FAIL'}")
+            check(r["parity_ok"], f"execute bench {name} {r['mode']}: parity outside "
+                                  f"atol {art['parity_atol']} rtol {art['parity_rtol']}")
+            check(r["dispatches_per_round"] == forwards[r["mode"]],
+                  f"execute bench {name} {r['mode']}: forwards a round")
+            if r["mode"].startswith("bucketed"):
+                check(set(r["traces"]) == {"cloud_padded"}
+                      and r["traces"]["cloud_padded"] <= len(r["edges_at_split"]),
+                      f"execute bench {name} {r['mode']}: cloud_padded traces exceed the edges")
+            else:
+                check(r["traces"] == {"cloud": len(set(entry))},
+                      f"execute bench {name} {r['mode']}: one trace a token count")
+        if name == "vit50":  # the reference's geometry: its committed baseline's structure
+            for key in ("cloud_entry_counts", "shared_suffixes", "bucket_table"):
+                check(art[key] == baseline[key], f"execute bench vit50 {key} != the baseline's")
+            check([r["traces"] for r in art["modes"]] == [r["traces"] for r in baseline["modes"]],
+                  "execute bench vit50 traces != the baseline's")
+        print(f"[bench] execute {name} ({art['config']['dtype']}, split {split}, entry counts "
+              f"{art['cloud_entry_counts']}) launches: {kernel}={counts[kernel]}, "
+              f"{other}={counts[other]}, tome_scores={counts['tome_scores']} (the geometry "
+              f"implies {exp_flash} and {exp_tome}: {n} device partitions, {cloud_forwards} "
+              f"stacked cloud forwards)")
+        check(counts[kernel] == exp_flash > 0 and counts[other] == 0
+              and counts["tome_scores"] == exp_tome > 0
+              and counts["decode_attention"] == counts["decode_attention_mma"] == 0,
+              f"execute bench {name} launch counts")
+        n_flash, flash_err = check_flash_calls(f"[bench] execute {name}", flash_calls)
+        n_tome, tome_err = check_tome_calls(f"[bench] execute {name}", tome_calls)
+        biased = sum(n for (_, kw, n) in flash_calls.values() if kw.get("bias") is not None)
+        nb_lens = sum(n for key, (*_, n) in tome_calls.items() if key[2])
+        qs = sorted({key[0] for key in flash_calls})
+        print(f"[bench] execute {name}: the kernels against their plain versions on the card, "
+              f"the first call of each shape: {kernel} {len(flash_calls)} shapes of "
+              f"{n_flash} calls (q {qs[0]} .. {qs[-1]}, {biased} calls with a bias) "
+              f"max_abs_err {flash_err:.3e} (tol "
+              f"{FLASH_F32 if cfg.dtype == torch.float32 else FLASH_BF16}"
+              f"{'' if cfg.dtype == torch.float32 else f' and {FLASH_BF16_REL} x max|plain|'}); "
+              f"tome_scores {len(tome_calls)} shapes of {n_tome} calls ({nb_lens} with nb_len) "
+              f"max_abs_err {tome_err:.3e} (tol {TOME_MAX}) ok")
+        check(n_flash == counts[kernel] and n_tome == counts["tome_scores"],
+              f"execute bench {name}: recorded calls {n_flash}, {n_tome} != launches")
+        paths[f"bench_execute_{name}"] = counts
+    for r in bench:
+        print(f"[bench] {r['name']}: {r['dtype']} {r['shape']}"
+              + (" causal" if r["causal"] else "") + (" bias" if r["bias"] else "")
+              + (f" length {r['length']}" if r["length"] else "")
+              + f", queued: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
+              f"{r['library_ms']:.4f} ms ({r['ms'] / r['library_ms']:.2f}x), bound "
+              f"{r['bound_ms']:.5f} ms ({r['bound_by']}), max_abs_err {r['max_abs_err']:.3e} "
+              f"tol {r['tol']} ok")
+    print(f"[bench] {time.perf_counter() - t0 + bench_s:.1f} s (kernel_bench {bench_s:.1f} s, "
+          f"measured at the start of the run)")
+    return paths
 
 
 def vit_forward_phase(torch, cfg, params) -> dict[str, int]:
@@ -2638,12 +2784,12 @@ def flash_backward_phase(torch) -> dict[str, float]:
         check(min(wrong.values()) > FLASH_BWD_BF16_OF_MAX,
               f"the flash backward's limit does not reject a wrong backward at {label}")
         del got, exp, pf
-        ms = time_ms(torch, lambda: flash_mod.backward(qd, kd, vd, od, dout, causal=causal), 10)
+        ms = time_ms(lambda: flash_mod.backward(qd, kd, vd, od, dout, causal=causal), 10)
 
         def sdpa_fwd():
             return F.scaled_dot_product_attention(q, k, v, is_causal=causal)
-        fwd_ms = time_ms(torch, sdpa_fwd, 10)
-        both_ms = time_ms(torch, lambda: torch.autograd.grad(sdpa_fwd(), (q, k, v), dout), 10)
+        fwd_ms = time_ms(sdpa_fwd, 10)
+        both_ms = time_ms(lambda: torch.autograd.grad(sdpa_fwd(), (q, k, v), dout), 10)
         pairs = s * (s + 1) / 2 if causal else s * s
         # five products of 2 D flops per (query, key) pair: S, dP, dV, dQ, dK
         b_ms, b_by = bound(10.0 * b * h * d * pairs, 8 * q.numel() * 2, PEAK_BF16)
@@ -3125,7 +3271,6 @@ def roofline_phase(torch, train_run: dict) -> dict[str, dict[str, int]]:
     from repro_torch.core import pruning
     from repro_torch.data import pipeline
     from repro_torch.kernels import flash_attention as flash_mod
-    from repro_torch.kernels import ref
     from repro_torch.kernels import tome_scores as tome_mod
     from repro_torch.launch import hillclimb, steps, train
     from repro_torch.launch.mesh import make_host_mesh
@@ -3196,15 +3341,7 @@ def roofline_phase(torch, train_run: dict) -> dict[str, dict[str, int]]:
                          generator=torch.Generator(device="cuda").manual_seed(8))
     plain_logits = vit.forward(p0, cfg, images)
     logits = {}
-    flash_calls, tome_calls = [], []
-
-    def recording(module, name, calls):
-        fn = getattr(module, name)
-
-        def rec(*args, **kwargs):
-            calls.append((args, kwargs))
-            return fn(*args, **kwargs)
-        return swapped_in(module, name, rec)
+    flash_calls, tome_calls = {}, {}
 
     for variant in ROOFLINE_VARIANTS:
         kw = varc[variant]
@@ -3214,7 +3351,7 @@ def roofline_phase(torch, train_run: dict) -> dict[str, dict[str, int]]:
                                   {"images": images, "labels": torch.zeros(
                                       shape.batch, dtype=torch.int32, device="cuda")})
         b.step_fn(*args)  # warm-up
-        ms = time_ms(torch, lambda: b.step_fn(*args), 3)
+        ms = time_ms(lambda: b.step_fn(*args), 3)
         torch.cuda.synchronize()
         flash_calls.clear()
         tome_calls.clear()
@@ -3239,29 +3376,12 @@ def roofline_phase(torch, train_run: dict) -> dict[str, dict[str, int]]:
                        f"{'ok' if counts == exp else 'FAIL'}")
         check(counts == exp, f"[roofline] {variant} launches {counts} != {exp}")
         # every kernel call of this run against its plain version (not counted)
-        flash_err, tome_err = 0.0, 0.0
-        for (q, k, v), kwargs in flash_calls:
-            got = flash_mod.flash_attention(q, k, v, **kwargs)
-            want = ref.flash_attention_ref(q, k, v, **kwargs)
-            err = (got.float() - want.float()).abs().max().item()
-            scale = want.float().abs().max().item()
-            ok = (torch.allclose(got.float(), want.float(), **FLASH_BF16)
-                  and err <= FLASH_BF16_REL * scale)
-            check(ok, f"[roofline] {variant} flash_mma q {tuple(q.shape)}: {err:.3e} of max "
-                      f"{scale:.3e}")
-            flash_err = max(flash_err, err)
-        for (a, bb, nb_len), _ in tome_calls:
-            m, i = tome_mod.tome_scores(a, bb, nb_len)
-            mr, _ = ref.tome_scores_ref(a, bb, nb_len)
-            scores = torch.einsum("bnd,bmd->bnm", a, bb)
-            at_idx = torch.gather(scores, 2, i.long()[..., None])[..., 0]
-            ok = (torch.allclose(m, mr, **TOME_MAX)
-                  and torch.allclose(at_idx, scores.amax(-1), **TOME_MAX))
-            check(ok, f"[roofline] {variant} tome_scores a {tuple(a.shape)} b {tuple(bb.shape)}")
-            tome_err = max(tome_err, (m - mr).abs().max().item())
-        shapes = sorted({tuple(q.shape) for (q, _, _), _ in flash_calls}, key=lambda t: -t[2])
-        biased = sum(kwargs.get("bias") is not None for _, kwargs in flash_calls)
-        tshapes = [(tuple(a.shape), tuple(bb.shape)) for (a, bb, _), _ in tome_calls]
+        _, flash_err = check_flash_calls(f"[roofline] {variant}", flash_calls)
+        _, tome_err = check_tome_calls(f"[roofline] {variant}", tome_calls)
+        shapes = sorted({tuple(q.shape) for (q, _, _), _, _ in flash_calls.values()},
+                        key=lambda t: -t[2])
+        biased = sum(kwargs.get("bias") is not None for _, kwargs, _ in flash_calls.values())
+        tshapes = [(tuple(a.shape), tuple(bb.shape)) for (a, bb, *_), _, _ in tome_calls.values()]
         print(f"[roofline] {variant} kernels against their plain versions on the card: "
               f"flash_mma {len(flash_calls)} calls (q shapes {shapes[0]} .. {shapes[-1]}, "
               f"{biased} with the ToMe bias) max_abs_err {flash_err:.3e} (tol {FLASH_BF16} "
