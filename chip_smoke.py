@@ -11,7 +11,9 @@ each failing the run on any failed check:
 1. device:  the card's name and power limit (nvidia-smi) and torch's name;
 2. build:   nvcc builds every kernel library from ``src/repro_torch/kernels/csrc``
             and prints each kernel's ptxas registers, spills and shared memory;
-            the tensor-core kernels and tome_scores must not spill;
+            the tensor-core kernels and tome_scores must not spill (the
+            tensor-core flash backward not at D=64: its D=128 spill and the
+            CUDA-core backward's are printed);
 3. kernels: each kernel against its plain PyTorch version on the card at the
             main paths' shapes, and timed beside its plain version, one
             library call computing the same function, and its bound. Flash
@@ -120,17 +122,23 @@ each failing the run on any failed check:
             and 384 px, window 12) and resnet-152 at their serving shapes in
             bf16: images/s, and bf16 logits against f32 logits of the same
             weights within a stated tolerance; ViT launches flash_mma a layer.
-15. train:  the flash kernel's backward (explicit PyTorch through its
-            autograd Function) against autograd of the plain version at the
-            train call [32,16,577,64] bf16 and at [2,24,1024,128] causal,
-            timed beside SDPA's backward, and two wrong backwards that must
-            read above its limit; then vit-l16 at ``cls_384`` with
+15. train:  the flash backward kernels (the tensor-core one at the train
+            call [32,16,577,64] bf16 and at [2,24,1024,128] causal, the
+            CUDA-core one at the f32 train parity's [4,16,577,64] and at an
+            f32 D=16 call) through the autograd Function against autograd
+            of the plain version (the launch counters must move, the plain
+            backward must not run) and against the plain backward on the
+            same inputs, and two wrong backwards that must read above the
+            limit, with kernel_bench's times of the same calls (the kernel,
+            the plain backward, SDPA's backward) and the bound; then
+            vit-l16 at ``cls_384`` with
             ``--full`` (304 M parameters, bf16 params, f32 moments, global
             batch 64 in 2 microbatches, remat) through
             ``repro_torch.launch.train.main``: 4 steps with a checkpoint at
             step 2, the step-4 checkpoint restored bit for bit, ``--resume``
             for 2 more; step ms, images/s, model TFLOP/s, peak memory;
-            flash_mma launches exactly 2 (forward and remat) x 24 x 2 a step;
+            flash_mma launches exactly 2 (forward and remat) x 24 x 2 a step,
+            flash_mma_bwd 24 x 2;
             one profiled step (idle share, the flash backward's share); one
             bf16 step's gradients with the kernels against the plain versions
             (loss, gradient norm, cosine, least leaf cosine) and an f32 step
@@ -181,9 +189,10 @@ sys.path.insert(0, str(ROOT / "src"))
 try:  # the timing helpers, peaks and kernel tolerances are the package's
     from repro_torch.benchmarks.execute_bench import BATCH_BF16
     from repro_torch.benchmarks.kernel_bench import (DECODE_BF16, DECODE_F32, FLASH_BF16,
-                                                     FLASH_BF16_REL, FLASH_F32, TOME_MAX,
+                                                     FLASH_BF16_REL, FLASH_BWD_BF16_OF_MAX,
+                                                     FLASH_BWD_F32_OF_MAX, FLASH_F32, TOME_MAX,
                                                      Case, flash_close, tome_close)
-    from repro_torch.benchmarks.timing import PEAK_BF16, bound, time_cold_ms, time_ms
+    from repro_torch.benchmarks.timing import PEAK_BF16, PEAK_F32, bound, time_cold_ms, time_ms
 except ModuleNotFoundError:
     sys.exit(f"chip_smoke: no src/repro_torch beside {__file__}; run it from a checkout")
 
@@ -257,6 +266,16 @@ def main() -> int:
         check(len(lines) == n_lines and all(" 0 B spill stores, 0 B spill loads" in line
                                             for line in lines),
               f"{name} spills (or ptxas printed another number of lines for it)")
+    # the backward kernels: two passes each; the tensor-core one must not
+    # spill at D=64 (its spill at D=128, and the CUDA-core one's, are printed)
+    for name, n_lines in (("flash_attention_mma_bwd", 4), ("flash_attention_bwd", 16)):
+        lines = ptxas_summary(_build.build_log(name))
+        check(len(lines) == n_lines, f"ptxas printed {len(lines)} lines for {name}")
+        spills = [line for line in lines if " 0 B spill stores, 0 B spill loads" not in line]
+        print(f"[build] {name}: {len(spills)} of {n_lines} instantiations spill"
+              + (": " + "; ".join(line.split(":")[0] for line in spills) if spills else ""))
+        if name == "flash_attention_mma_bwd":
+            check(not any("<64>" in line for line in spills), f"{name} spills at D=64")
 
     from repro_torch.runtime.device import parity_numerics
     parity_numerics()  # f32 plain versions and f32 phases must not use TF32
@@ -295,8 +314,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     paths.update(vision_phase(torch))
     torch.cuda.empty_cache()
-    train_paths, train_run = train_phase(torch)
+    train_paths, train_run = train_phase(torch, bench)
     paths.update(train_paths)
+    rows += train_run["bwd_rows"]
     torch.cuda.empty_cache()
     paths["train_mesh"] = train_mesh_phase(torch, train_run)
     torch.cuda.empty_cache()
@@ -342,15 +362,20 @@ def zero_counts() -> None:
     for mod in (decode_attention, flash_attention, tome_scores):
         mod.launches = 0
     flash_attention.launches_mma = decode_attention.launches_mma = 0
+    flash_attention.launches_bwd = flash_attention.launches_bwd_mma = 0
     moe_a2a.collectives = 0
 
 
 def read_counts() -> dict[str, int]:
     """Launches per kernel since ``zero_counts``; the flash and decode
-    wrappers' totals split into their tensor-core and CUDA-core kernels."""
+    wrappers' totals split into their tensor-core and CUDA-core kernels, and
+    the flash backward's calls likewise."""
     from repro_torch.kernels import decode_attention, flash_attention, tome_scores
-    return {"flash_attention_mma": flash_attention.launches_mma,
-            "flash_attention": flash_attention.launches - flash_attention.launches_mma,
+    fa = flash_attention
+    return {"flash_attention_mma": fa.launches_mma,
+            "flash_attention": fa.launches - fa.launches_mma,
+            "flash_attention_mma_bwd": fa.launches_bwd_mma,
+            "flash_attention_bwd": fa.launches_bwd - fa.launches_bwd_mma,
             "tome_scores": tome_scores.launches,
             "decode_attention_mma": decode_attention.launches_mma,
             "decode_attention": decode_attention.launches - decode_attention.launches_mma}
@@ -383,12 +408,6 @@ def device_us(torch, fn, iters: int = 20) -> dict[str, float]:
     return {name: sum(ts) / len(ts) for name, ts in _device_times(torch, fn, iters).items()}
 
 
-def device_us_per_call(torch, fn, iters: int = 5) -> dict[str, tuple[float, float]]:
-    """(launches, µs on the card) per call of ``fn``, by kernel name."""
-    return {name: (len(ts) / iters, sum(ts) / iters)
-            for name, ts in _device_times(torch, fn, iters).items()}
-
-
 def fmt_us(times: dict[str, float]) -> str:
     return ", ".join(f"{name} {us:.2f} us" for name, us in times.items())
 
@@ -401,7 +420,7 @@ def cuda_core_flash(torch, flash_mod, q, k, v, bias, causal):
     out = torch.empty_like(q)
     err = flash_mod._fn(flash_mod.CUDA_CORE)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), None if bias is None else bias.data_ptr(),
-        None, out.data_ptr(), b, h, sq, k.shape[2], d, 1, int(causal),
+        None, out.data_ptr(), None, b, h, sq, k.shape[2], d, 1, int(causal),
         torch.cuda.current_stream().cuda_stream)
     check(err == 0, f"CUDA-core flash kernel launch failed: cudaError {err}")
     return out
@@ -1175,8 +1194,7 @@ def vit_forward_phase(torch, cfg, params) -> dict[str, int]:
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3
     counts = read_counts()
-    exp = {"flash_attention_mma": cfg.n_layers, "flash_attention": 0, "tome_scores": 0,
-           "decode_attention_mma": 0, "decode_attention": 0}
+    exp = _expect(flash_attention_mma=cfg.n_layers)
     print(f"[vit forward] ViT-L@384 bf16 vit.forward B=8: {ms:.2f} ms, logits "
           f"{tuple(logits.shape)}, launches {counts} (implies {exp})")
     check(tuple(logits.shape) == (8, cfg.n_classes), "vit.forward logits shape")
@@ -1205,10 +1223,12 @@ def trace_phase(torch, cfg, params, images) -> None:
     profile_once(torch, "cloud batch B=8 split 18 (padded)", lambda: cloud(params, xp, sp))
 
 
-PORT_KERNEL = re.compile(r"\b(flash_mma_fwd|flash_fwd|tome_scores|decode_mma_partial|"
+PORT_KERNEL = re.compile(r"\b(flash_mma_fwd|flash_fwd|flash_mma_bwd_dq|flash_mma_bwd_dkdv|"
+                         r"flash_bwd_dq|flash_bwd_dkdv|tome_scores|decode_mma_partial|"
                          r"decode_mma_combine|decode_partial|decode_combine)_kernel\b")
 
 
+FLASH_BWD_KERNEL = re.compile(r"\bflash_(mma_)?bwd_(dq|dkdv)_kernel\b")
 MOE_RANGE = "moe.apply"
 FLASH_BWD_RANGE = "flash_attention.backward"
 RANGES = (MOE_RANGE, FLASH_BWD_RANGE)  # profiler ranges of this script, not kernels
@@ -1724,8 +1744,7 @@ def parity_phase(torch) -> tuple[dict[str, int], dict[str, int]]:
     print(f"[parity] launches of the kernel run: {counts} (implies CUDA-core flash "
           f"{cfg.n_layers}, tome_scores {n_merge})")
     check(ok, "f32 whole-path parity failed")
-    check(counts == {"flash_attention_mma": 0, "flash_attention": cfg.n_layers,
-                     "tome_scores": n_merge, "decode_attention_mma": 0, "decode_attention": 0},
+    check(counts == _expect(flash_attention=cfg.n_layers, tome_scores=n_merge),
           "f32 ViT launch counts")
 
     zero_counts()
@@ -1736,8 +1755,7 @@ def parity_phase(torch) -> tuple[dict[str, int], dict[str, int]]:
     torch.cuda.synchronize()
     err = (forward_k - forward_p).abs().max().item()
     ok = torch.allclose(forward_k, forward_p, **PARITY_F32)
-    exp = {"flash_attention_mma": 0, "flash_attention": cfg.n_layers, "tome_scores": 0,
-           "decode_attention_mma": 0, "decode_attention": 0}
+    exp = _expect(flash_attention=cfg.n_layers)
     print(f"[parity] ViT-L@384 f32 vit.forward B=1: kernels vs plain max|dlogits|={err:.3e} "
           f"tol={PARITY_F32}, launches of the kernel run {forward_counts} (implies {exp}) "
           f"{'ok' if ok else 'FAIL'}")
@@ -1831,9 +1849,7 @@ def serve_phase(torch, tag: str, name: str, cfg, params, steps: int) -> tuple[di
           f"{step_ms[0]:.2f} ms; {LM_BATCH * steps / sum(step_ms) * 1e3:.1f} generated tokens/s")
     print(f"[{tag}] step ms: {' '.join(f'{t:.2f}' for t in step_ms)}")
     print(f"[{tag}] weights {weights_gb:.3f} GB, max_memory_allocated {peak_gb:.3f} GB")
-    exp = {"flash_attention_mma": cfg.n_layers, "flash_attention": 0,
-           "decode_attention_mma": cfg.n_layers * steps, "decode_attention": 0,
-           "tome_scores": 0}
+    exp = _expect(flash_attention_mma=cfg.n_layers, decode_attention_mma=cfg.n_layers * steps)
     print(f"[{tag}] launches: {counts} (prefill and {steps} steps imply {exp})")
     check(tuple(logits.shape) == (LM_BATCH, 1, cfg.vocab), f"{name} decode logits shape")
     check(bool(torch.stack(finite).all()), f"non-finite {name} logits")
@@ -2067,9 +2083,7 @@ def lm_parity_phase(torch) -> dict[str, int]:
           f"decode steps {' '.join(f'{e:.2e}' for e in errs[1:])}, max|dcache| "
           f"{cache_err:.3e}, tol={PARITY_F32}, |logits| max {lp[-1].abs().max().item():.2f}, "
           f"{time.perf_counter() - t0:.1f} s {'ok' if ok else 'FAIL'}")
-    exp = {"flash_attention_mma": 0, "flash_attention": cfg.n_layers,
-           "decode_attention_mma": 0, "decode_attention": cfg.n_layers * steps,
-           "tome_scores": 0}
+    exp = _expect(flash_attention=cfg.n_layers, decode_attention=cfg.n_layers * steps)
     print(f"[lm parity] launches of the kernel run: {counts} (implies {exp})")
     check(ok, "f32 LM parity failed")
     check(counts == exp, "f32 LM launch counts")
@@ -2248,9 +2262,7 @@ def moe_parity_phase(torch) -> tuple[dict[str, int], dict[str, int], dict[str, i
               f"{errs[0]:.3e}, steps {' '.join(f'{e:.2e}' for e in errs[1:])}; {cache_note}; "
               f"tol={PARITY_F32}; |logits| max {lp[-1].abs().max().item():.2f}; "
               f"{time.perf_counter() - t0:.1f} s {'ok' if ok else 'FAIL'}")
-        exp = {"flash_attention_mma": 0, "flash_attention": n_layers,
-               "decode_attention_mma": 0, "decode_attention": n_layers * steps,
-               "tome_scores": 0}
+        exp = _expect(flash_attention=n_layers, decode_attention=n_layers * steps)
         print(f"[moe_parity] {label}: launches of the kernel run: {counts} (implies {exp})")
         check(ok, f"qwen3 f32 MoE parity failed ({label})")
         check(counts == exp, f"qwen3 f32 MoE launch counts ({label})")
@@ -2337,8 +2349,9 @@ def _nz(counts: dict[str, int]) -> dict[str, int]:
 
 
 def _expect(**counts) -> dict[str, int]:
-    exp = {"flash_attention_mma": 0, "flash_attention": 0, "tome_scores": 0,
-           "decode_attention_mma": 0, "decode_attention": 0}
+    exp = {"flash_attention_mma": 0, "flash_attention": 0, "flash_attention_mma_bwd": 0,
+           "flash_attention_bwd": 0, "tome_scores": 0, "decode_attention_mma": 0,
+           "decode_attention": 0}
     exp.update(counts)
     return exp
 
@@ -2680,12 +2693,13 @@ TRAIN_STEPS, TRAIN_RESUME_STEPS, TRAIN_CKPT_EVERY = 4, 2, 2
 # the flash backward's calls: the train path's, and an LM train shape's head dim
 TRAIN_BWD = (("vit-l16 cls_384 train", 32, 16, 577, 64, False),
              ("LM train causal D=128", 2, 24, 1024, 128, True))
-# bf16 dq/dk/dv against autograd of the plain version in f32: P, dS and the
-# gradients are rounded to bf16 once, the forward's output comes from the bf16
-# kernel. Sound readings 2.7e-3 to 3.9e-3 of max|g| on the card, 2.4e-3 to
-# 4.9e-3 on the CPU; the wrong backwards of wrong_flash_backwards read 0.17
-# and above on the CPU
-FLASH_BWD_BF16_OF_MAX = 1e-2
+# dq/dk/dv against autograd of the plain version in f32 (and the backward
+# kernels against the plain backward) within FLASH_BWD_BF16_OF_MAX (1e-2) or
+# FLASH_BWD_F32_OF_MAX (1e-4) of max|g|: kernel_bench's, with their readings
+# the f32 backward's calls on the CUDA-core kernel: the f32 train parity's
+# [4,16,577,64] and a D=16 call (the smoke ViTs' head dim)
+TRAIN_BWD_F32 = (("vit-l16 f32 train parity", 4, 16, 577, 64, False),
+                 ("f32 D=16", 8, 4, 577, 16, False))
 # one bf16 step's gradients, kernels against plain versions (two bf16 models
 # that round attention at other places, 24 layers deep): the loss, the
 # gradient norm, the cosine of the flat gradients, and the least cosine of a
@@ -2719,14 +2733,18 @@ def wrong_flash_backwards(flash_mod) -> dict:
     return {"rowsum(dO*O) dropped": no_rowsum, "key tile 0's dK, dV dropped": key_tile_dropped}
 
 
-def wrong_flash_forward(torch, ref):
+def wrong_flash_forward(torch, ref, flash_mod):
     """A plainly wrong flash forward: the plain version with key tile 0
-    masked out."""
-    def forward(q, k, v, bias, kv_len, causal):
+    masked out (with the sound kernel's log-sum-exp, which the backward
+    kernel needs)."""
+    sound = flash_mod._forward
+
+    def forward(q, k, v, bias, kv_len, causal, with_lse=False):
         drop = torch.zeros(k.shape[0], k.shape[2], device=k.device)
         drop[:, :64] = -torch.inf
-        return ref.flash_attention_ref(q, k, v, bias=drop if bias is None else bias + drop,
-                                       kv_len=kv_len, causal=causal)
+        out = ref.flash_attention_ref(q, k, v, bias=drop if bias is None else bias + drop,
+                                      kv_len=kv_len, causal=causal)
+        return (out, sound(q, k, v, bias, kv_len, causal, True)[1]) if with_lse else out
     return forward
 
 
@@ -2745,70 +2763,112 @@ def swapped_in(module, name: str, fn):
     return ctx()
 
 
-def flash_backward_phase(torch) -> dict[str, float]:
-    """The flash kernel's backward (its autograd Function: the kernel's
-    forward, explicit PyTorch backward) against autograd of the plain version
-    in f32 on the same bf16 inputs, and its time beside SDPA's backward.
-    Returns the backward's ms per call at each shape. Launches here compare
-    and time; they are on no path."""
-    import torch.nn.functional as F
+def flash_backward_phase(torch, bench: list[dict]) -> tuple[dict[str, float], list[dict]]:
+    """The flash backward kernels at the train calls: through the kernel's
+    autograd Function against autograd of the plain version in f32 on the
+    same inputs (bf16 within FLASH_BWD_BF16_OF_MAX of max|g|, f32 within
+    FLASH_BWD_F32_OF_MAX; the launch counters must move and the plain
+    backward must not run), the kernel backward against the plain backward
+    ``ref.flash_attention_bwd_ref`` on the same inputs, and the two wrong
+    backwards of ``wrong_flash_backwards`` above the limit. The times (the
+    kernel's, the plain backward's, SDPA's backward) and the bound are
+    ``kernel_bench``'s records of the same calls (``bench``). Returns the
+    backward's ms per call at each shape and the two backward kernels' rows
+    of the kernels JSON line. Launches here compare; they are on no path."""
     from repro_torch.kernels import flash_attention as flash_mod
     from repro_torch.kernels import ref
 
     gen = torch.Generator(device="cuda").manual_seed(30)
-    ms_by_label = {}
-    for label, b, h, s, d, causal in TRAIN_BWD:
-        q, k, v = (torch.randn((b, h, s, d), generator=gen, device="cuda").to(torch.bfloat16)
+    ms_by_label, timings = {}, {name: [] for name in flash_mod.BWD.values()}
+    errs = {name: 0.0 for name in flash_mod.BWD.values()}
+    cases = ([(c, torch.bfloat16) for c in TRAIN_BWD]
+             + [(c, torch.float32) for c in TRAIN_BWD_F32])
+    for (label, b, h, s, d, causal), dtype in cases:
+        case = Case(label, "flash_bwd", (b, h, s, d), dtype, causal=causal)
+        name = case.kernel()
+        shared = bench_row(bench, case)
+        check(shared is not None, f"kernel_bench has no row for the flash backward {label}")
+        limit = FLASH_BWD_BF16_OF_MAX if dtype == torch.bfloat16 else FLASH_BWD_F32_OF_MAX
+        shape = (f"{label}: q,k,v [{b},{h},{s},{d}] {str(dtype)[6:]}"
+                 + (", causal" if causal else ""))
+        q, k, v = (torch.randn((b, h, s, d), generator=gen, device="cuda").to(dtype)
                    .requires_grad_() for _ in "qkv")
-        dout = torch.randn((b, h, s, d), generator=gen, device="cuda").to(torch.bfloat16)
-        out = flash_mod.flash_attention(q, k, v, causal=causal)
-        got = torch.autograd.grad(out, (q, k, v), dout)
+        dout = torch.randn((b, h, s, d), generator=gen, device="cuda").to(dtype)
+        before = flash_mod.launches_bwd, flash_mod.launches_bwd_mma
+
+        def plain_backward(*a, **kw):
+            raise AssertionError("the plain backward ran on a CUDA tensor")
+        with swapped_in(ref, "flash_attention_bwd_ref", plain_backward):
+            out = flash_mod.flash_attention(q, k, v, causal=causal)
+            got = torch.autograd.grad(out, (q, k, v), dout)
+        torch.cuda.synchronize()
+        mma = name == flash_mod.BWD[flash_mod.MMA]
+        moved = (flash_mod.launches_bwd - before[0], flash_mod.launches_bwd_mma - before[1])
+        check(moved == (1, int(mma)), f"flash backward {label}: launches {moved}, not on {name}")
         pf = [t.detach().float().requires_grad_() for t in (q, k, v)]
         exp = torch.autograd.grad(ref.flash_attention_ref(*pf, causal=causal), pf, dout.float())
+
         def of_max(grads):
             return [((g.float() - e).abs().max() / e.abs().max()).item()
                     for g, e in zip(grads, exp)]
         rel = of_max(got)
-        ok = all(torch.isfinite(g).all() for g in got) and max(rel) <= FLASH_BWD_BF16_OF_MAX
-        print(f"[train] flash backward {label}: q,k,v [{b},{h},{s},{d}] bf16"
-              f"{', causal' if causal else ''}: max|d| / max|g| dq {rel[0]:.3e} dk "
+        ok = all(torch.isfinite(g).all() for g in got) and max(rel) <= limit
+        print(f"[train] flash backward {shape} on {name}: max|d| / max|g| dq {rel[0]:.3e} dk "
               f"{rel[1]:.3e} dv {rel[2]:.3e} against autograd of the plain version in f32 "
-              f"(tol {FLASH_BWD_BF16_OF_MAX}) {'ok' if ok else 'FAIL'}")
+              f"(tol {limit}) {'ok' if ok else 'FAIL'}")
         check(ok, f"flash backward {label} disagrees with autograd of its plain version")
-        qd, kd, vd, od = q.detach(), k.detach(), v.detach(), out.detach()
-        wrong = {name: max(of_max(fn(qd, kd, vd, od, dout, causal=causal)[:3]))
-                 for name, fn in wrong_flash_backwards(flash_mod).items()}
+        qd, kd, vd = q.detach(), k.detach(), v.detach()
+        od, lse = flash_mod._forward(qd, kd, vd, None, None, causal, True)
+        kernel_g = flash_mod.backward(qd, kd, vd, od, dout, causal=causal, lse=lse)
+        plain_g = ref.flash_attention_bwd_ref(qd, kd, vd, od, dout, causal=causal)
+        torch.cuda.synchronize()
+        err = max((a.float() - e.float()).abs().max().item() for a, e in
+                  zip(kernel_g[:3], plain_g[:3]))
+        scale = max(e.float().abs().max().item() for e in plain_g[:3])
+        errs[name] = max(errs[name], err)
+        ok = err <= limit * scale
+        print(f"[train] flash backward {shape}: {name} against the plain backward on the same "
+              f"inputs: max_abs_err {err:.3e} ({err / scale:.3e} of max|plain| {scale:.3e}, tol "
+              f"{limit} of it) {'ok' if ok else 'FAIL'}")
+        check(ok, f"{name} {label} disagrees with the plain backward")
+        wrong = {wname: max(of_max(fn(qd, kd, vd, od, dout, causal=causal, lse=lse)[:3]))
+                 for wname, fn in wrong_flash_backwards(flash_mod).items()}
         print(f"[train] flash backward {label}: a wrong backward would read "
-              + ", ".join(f"{name} {r:.3e}" for name, r in wrong.items())
-              + f" of max|g| (limit {FLASH_BWD_BF16_OF_MAX})")
-        check(min(wrong.values()) > FLASH_BWD_BF16_OF_MAX,
+              + ", ".join(f"{wname} {r:.3e}" for wname, r in wrong.items())
+              + f" of max|g| (limit {limit})")
+        check(min(wrong.values()) > limit,
               f"the flash backward's limit does not reject a wrong backward at {label}")
-        del got, exp, pf
-        ms = time_ms(lambda: flash_mod.backward(qd, kd, vd, od, dout, causal=causal), 10)
-
-        def sdpa_fwd():
-            return F.scaled_dot_product_attention(q, k, v, is_causal=causal)
-        fwd_ms = time_ms(sdpa_fwd, 10)
-        both_ms = time_ms(lambda: torch.autograd.grad(sdpa_fwd(), (q, k, v), dout), 10)
-        pairs = s * (s + 1) / 2 if causal else s * s
-        # five products of 2 D flops per (query, key) pair: S, dP, dV, dQ, dK
-        b_ms, b_by = bound(10.0 * b * h * d * pairs, 8 * q.numel() * 2, PEAK_BF16)
-        print(f"[train] flash backward {label} timing: {ms:.4f} ms a call (plain PyTorch: f32 "
-              f"S and dP products, bf16 dV, dQ, dK products, f32 softmax passes over "
-              f"[{b},{h},{s},{s}]); SDPA backward {both_ms - fwd_ms:.4f} ms (forward + "
-              f"backward {both_ms:.4f} less forward {fwd_ms:.4f}); bound {b_ms:.4f} ms "
-              f"({b_by}); {ms / max(both_ms - fwd_ms, 1e-9):.2f}x SDPA's backward")
-        per_call = device_us_per_call(torch, lambda: flash_mod.backward(
-            qd, kd, vd, od, dout, causal=causal))
-        busy = sum(us for _, us in per_call.values())
-        print(f"[train] flash backward {label} on the card per call (profiler; launches x, "
-              f"µs): " + ", ".join(f"{name} {n:g}x {us:.2f}" for name, (n, us) in
-                                   per_call.items())
-              + f"; kernels {busy:.2f} µs of the {ms * 1e3:.2f} timed")
+        ms, plain_ms, lib_ms = shared["ms"], shared["plain_ms"], shared["library_ms"]
+        b_ms, b_by = case.bound()
+        print(f"[train] flash backward {shape} timing (kernel_bench {shared['label']}, queued): "
+              f"{name} {ms:.4f} ms a call; plain backward {plain_ms:.4f} ms; SDPA backward "
+              f"{lib_ms:.4f} ms ({ms / lib_ms:.2f}x); bound {b_ms:.4f} ms ({b_by}, "
+              f"{case.flops():.4e} FLOP, {case.nbytes():.4e} B; kernel at {b_ms / ms:.3f} of it)")
         ms_by_label[label] = ms
-        del q, k, v, dout, out, qd, kd, vd, od
+        timings[name].append(dict(shape=shape, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                                  bound_ms=b_ms, bound_by=b_by,
+                                  timing=f"kernel_bench {shared['label']}, queued"))
+        del q, k, v, dout, out, qd, kd, vd, od, lse, got, exp, pf, kernel_g, plain_g
         torch.cuda.empty_cache()
-    return ms_by_label
+    rows = []
+    for kernel, name in flash_mod.BWD.items():
+        first = timings[name][0]
+        rows.append(dict(
+            name=name, route="cuda", source=f"src/repro_torch/kernels/csrc/{name}.cu",
+            replaces="src/repro/kernels/flash_attention.py:90",
+            replaces_note="the gradient of that kernel's function; the reference "
+                          "differentiates its jnp layers.sdpa with XLA (no Pallas backward)",
+            serves="bf16 at D 64, 128" if kernel == flash_mod.MMA
+            else "f32 at D 16-128, bf16 at D 16, 32",
+            max_abs_err=errs[name], max_err=errs[name],
+            tol={"bf16_of_max_g": FLASH_BWD_BF16_OF_MAX, "f32_of_max_g": FLASH_BWD_F32_OF_MAX},
+            ms=first["ms"], kernel_ms=first["ms"], plain_ms=first["plain_ms"],
+            library_ms=first["library_ms"],
+            library="torch.autograd.grad of torch.nn.functional.scaled_dot_product_attention "
+                    "(the backward alone, its graph retained)", timing=first["timing"],
+            bound_ms=first["bound_ms"], bound_us=first["bound_ms"] * 1e3,
+            bound_by=first["bound_by"], shape=first["shape"], timings=timings[name]))
+    return ms_by_label, rows
 
 
 def bf16_step_readings(param, loss_k, grads_k, loss_p, grads_p) -> dict:
@@ -2899,7 +2959,8 @@ def train_parity_phase(torch, params, opt, batch, bundle) -> tuple[dict, dict]:
     r = bf16_step_readings(param, loss_k, grads_k, loss_p, grads_p)
     del grads_k
     broken = bf16_step_broken(r)
-    exp16 = _expect(flash_attention_mma=2 * cfg.n_layers * bundle.accum)
+    exp16 = _expect(flash_attention_mma=2 * cfg.n_layers * bundle.accum,
+                    flash_attention_mma_bwd=cfg.n_layers * bundle.accum)
     print(f"[train parity] {TRAIN_ARCH} {TRAIN_SHAPE} bf16, one step's gradients (accum "
           f"{bundle.accum}) through the kernels vs the plain versions: loss {r['loss']:.6f} vs "
           f"{float(loss_p):.6f} (rel {r['loss_rel']:.3e}), gradient norm {r['gnorm']:.6f} (rel "
@@ -2911,7 +2972,8 @@ def train_parity_phase(torch, params, opt, batch, bundle) -> tuple[dict, dict]:
         for k, share in r["norm_shares"].items()))
     check(not broken and counts16 == exp16, "bf16 train step: kernels vs plain versions")
     for name, ctx in wrong() + [("forward with key tile 0 dropped",
-                               swapped_in(flash_mod, "_forward", wrong_flash_forward(torch, ref)))]:
+                               swapped_in(flash_mod, "_forward",
+                                          wrong_flash_forward(torch, ref, flash_mod)))]:
         with ctx:
             loss_w, grads_w = grads16()
         w = bf16_step_readings(param, loss_w, grads_w, loss_p, grads_p)
@@ -2944,7 +3006,7 @@ def train_parity_phase(torch, params, opt, batch, bundle) -> tuple[dict, dict]:
         l_p, g_p = steps.value_and_grad(loss_fn, p32, b32)
     r = f32_step_readings(param, l_k, g_k, l_p, g_p)
     broken = f32_step_broken(r)
-    exp32 = _expect(flash_attention=2 * cfg.n_layers)
+    exp32 = _expect(flash_attention=2 * cfg.n_layers, flash_attention_bwd=cfg.n_layers)
     print(f"[train parity] {TRAIN_ARCH} f32 cut to {cfg.n_layers} layers, B=4 at "
           f"{cfg.img_res} px: loss {float(l_k):.7f} vs {float(l_p):.7f}; {r['n']} gradient "
           f"leaves ({r['n_real']} above rounding), worst {r['of_leaf']:.3e} of its max|g| "
@@ -2966,7 +3028,10 @@ def profile_train_step(torch, bundle, params, opt, batch, calls_per_step: int,
                        bwd_call_ms: float) -> None:
     """torch.profiler over one train step after one warm step, each flash
     backward inside a profiler range: the step's idle share and the flash
-    backward's share of its kernel time. The steps update params and opt."""
+    backward's share of its kernel time: its kernels by name (the wrapper
+    launches them through ctypes, so the profiler links them to no range)
+    and the PyTorch operations under the ranges (allocation, the dbias sum).
+    The steps update params and opt."""
     from torch.autograd import DeviceType
     from torch.profiler import record_function
 
@@ -2987,19 +3052,24 @@ def profile_train_step(torch, bundle, params, opt, batch, calls_per_step: int,
         flash_mod.backward = backward
     spans = [ev for ev in prof.events()
              if ev.name == FLASH_BWD_RANGE and ev.device_type == DeviceType.CPU]
-    bwd_ms = sum(ev.device_time_total for ev in spans) / 1e3
+    ops_ms = sum(ev.device_time_total for ev in spans) / 1e3
+    kernels = [ev for ev in prof.events() if ev.device_type == DeviceType.CUDA
+               and FLASH_BWD_KERNEL.search(ev.name)]
+    kernel_ms = sum(ev.time_range.elapsed_us() for ev in kernels) / 1e3
+    bwd_ms = kernel_ms + ops_ms
     timed = calls_per_step * bwd_call_ms
-    if bwd_ms and busy_ms:
-        share = f"{bwd_ms:.3f} ms in {len(spans)} ranges, {bwd_ms / busy_ms:.3f} of kernel time"
+    if kernels and busy_ms:
+        share = (f"{bwd_ms:.3f} ms ({len(kernels)} kernel launches {kernel_ms:.3f} ms, "
+                 f"operations in {len(spans)} ranges {ops_ms:.3f} ms), {bwd_ms / busy_ms:.3f} "
+                 f"of kernel time")
     else:
-        share = (f"not measured by the profiler ({len(spans)} ranges; it linked no kernel "
-                 "to them)")
+        share = f"not measured by the profiler ({len(spans)} ranges, no backward kernel seen)"
     print(f"[trace] train {TRAIN_ARCH} {TRAIN_SHAPE} step: flash backward {share}; "
           f"timed alone, {calls_per_step} calls x {bwd_call_ms:.4f} ms = {timed:.3f} ms, "
           f"{timed / wall_ms:.3f} of the profiled step's wall")
 
 
-def train_phase(torch) -> tuple[dict[str, dict[str, int]], dict]:
+def train_phase(torch, bench: list[dict]) -> tuple[dict[str, dict[str, int]], dict]:
     """vit-l16 at cls_384, full size, through ``launch.train.main`` on the
     card: train, checkpoint, restore, resume; then one profiled step and the
     parity steps. Returns each counted run's launches, and the run's losses,
@@ -3014,7 +3084,7 @@ def train_phase(torch) -> tuple[dict[str, dict[str, int]], dict]:
     from repro_torch.models import param
 
     t_phase = time.perf_counter()
-    bwd_ms = flash_backward_phase(torch)
+    bwd_ms, bwd_rows = flash_backward_phase(torch, bench)
     arch = configs.get_arch(TRAIN_ARCH)
     cfg = configs.config_for_shape(arch, arch.shape(TRAIN_SHAPE))
     bundle = steps.build_bundle(TRAIN_ARCH, TRAIN_SHAPE, None)
@@ -3053,7 +3123,8 @@ def train_phase(torch) -> tuple[dict[str, dict[str, int]], dict]:
     finally:
         shutil.rmtree(ckdir, ignore_errors=True)
     n_steps = TRAIN_STEPS + TRAIN_RESUME_STEPS
-    exp = _expect(flash_attention_mma=2 * cfg.n_layers * bundle.accum * n_steps)
+    exp = _expect(flash_attention_mma=2 * cfg.n_layers * bundle.accum * n_steps,
+                  flash_attention_mma_bwd=cfg.n_layers * bundle.accum * n_steps)
     med = first.median_step_s()
     # the second step of each run: warm, and no checkpoint write in flight (the
     # first run's step-2 save is written while its steps 2 and 3 run)
@@ -3083,7 +3154,7 @@ def train_phase(torch) -> tuple[dict[str, dict[str, int]], dict]:
     counts16, counts32 = train_parity_phase(torch, second.params, second.opt, batch, bundle)
     print(f"[train] phase {time.perf_counter() - t_phase:.1f} s")
     run = {"losses": losses, "step_s": first.step_s + second.step_s, "median_s": med,
-           "quiet_s": quiet, "peak_gb": peak_gb}
+           "quiet_s": quiet, "peak_gb": peak_gb, "bwd_rows": bwd_rows}
     return {"train": counts, "train_bf16_parity": counts16, "train_f32_parity": counts32}, run
 
 
@@ -3152,7 +3223,8 @@ def train_mesh_phase(torch, unmeshed: dict) -> dict[str, int]:
     finally:
         shutil.rmtree(ckdir, ignore_errors=True)
     n_steps = TRAIN_STEPS + TRAIN_RESUME_STEPS
-    exp = _expect(flash_attention_mma=2 * cfg.n_layers * bundle.accum * n_steps)
+    exp = _expect(flash_attention_mma=2 * cfg.n_layers * bundle.accum * n_steps,
+                  flash_attention_mma_bwd=cfg.n_layers * bundle.accum * n_steps)
     losses = first.losses + second.losses
     ref = unmeshed["losses"]
     bit_equal = losses == ref
@@ -3300,7 +3372,8 @@ def roofline_phase(torch, train_run: dict) -> dict[str, dict[str, int]]:
         loss = float(metrics["loss"])
     torch.cuda.synchronize()
     out["roofline train count"] = counts = read_counts()
-    exp = _expect(flash_attention_mma=2 * cfg.n_layers * bundle.accum)
+    exp = _expect(flash_attention_mma=2 * cfg.n_layers * bundle.accum,
+                  flash_attention_mma_bwd=cfg.n_layers * bundle.accum)
     check(counts == exp and loss == loss, f"[roofline] train count: launches {counts} != {exp} "
                                           f"or loss {loss}")
     del params, opt, batch, metrics

@@ -17,7 +17,13 @@ kernels: tome_scores [8,289,64] x [8,288,64] (also the ViT path's B=8
 call), flash [1,16,577,64], decode [8,24,128] over a full [8,4096,2,128]
 cache. Part 2: the paths' bf16 calls: flash_attention_mma at ViT B=8 with
 the ToMe bias and at starcoder2's causal prefill [8,24,1024,128], and
-decode_attention_mma at starcoder2's last decode step.
+decode_attention_mma at starcoder2's last decode step. Part 3: the flash
+backward (``flash_bwd``) at the train calls: flash_attention_mma_bwd at
+vit-l16 ``cls_384`` [32,16,577,64] and an LM train shape [2,24,1024,128]
+causal, flash_attention_bwd at the f32 train parity's [4,16,577,64] and
+at D=16 [8,4,577,16]; the plain version is ``ref.flash_attention_bwd_ref``,
+the library call SDPA's backward alone (``autograd.grad`` of a retained
+graph).
 
 ``rows()`` keeps the reference's ``(name, us_per_call, derived)`` shape:
 the kernel's µs a call and its bound in µs. Without a card it refuses: no
@@ -39,7 +45,7 @@ from repro_torch.benchmarks import common
 from repro_torch.benchmarks.timing import PEAK_BF16, PEAK_F32, bound, time_ms
 from repro_torch.kernels import decode_attention as decode_mod
 from repro_torch.kernels import flash_attention as flash_mod
-from repro_torch.kernels import ref
+from repro_torch.kernels import ops, ref
 from repro_torch.kernels import tome_scores as tome_mod
 from repro_torch.runtime.device import parity_numerics
 
@@ -55,15 +61,24 @@ FLASH_BF16_REL = 3e-2
 TOME_MAX = dict(atol=2e-5, rtol=1e-3)   # tests/test_kernels.py:29-30
 DECODE_F32 = dict(atol=2e-5, rtol=1e-4)  # tests/test_kernels.py:113
 DECODE_BF16 = dict(atol=2e-2, rtol=0.0)
+# flash backward dq/dk/dv, max|d| <= this x max|g|: bf16 against the f32
+# gradient, P, dS and the gradients rounded to bf16 once (sound readings
+# 2.7e-3 to 3.9e-3 of max|g| on the card, 2.4e-3 to 4.9e-3 on the CPU; the
+# wrong backwards of chip_smoke.py's wrong_flash_backwards read 0.17 and
+# above on the CPU); f32 both f32 throughout, only sums differ in order
+FLASH_BWD_BF16_OF_MAX = 1e-2
+FLASH_BWD_F32_OF_MAX = 1e-4
 
 
 @dataclasses.dataclass(frozen=True)
 class Case:
     """One row: a kernel family at one call shape.
 
-    flash: ``shape`` = (B, H, S, D), ``causal``, ``bias`` (a [B, S] log-size
-    bias); decode: ``shape`` = (B, Hq, Hkv, S, D), ``length`` (valid cache
-    entries); tome: ``shape`` = (B, Na, Nb, D), always f32."""
+    flash and flash_bwd (its backward): ``shape`` = (B, H, S, D),
+    ``causal``, ``bias`` (a [B, S] log-size bias; flash only); decode:
+    ``shape`` = (B, Hq, Hkv, S, D), ``length`` (valid cache entries); tome:
+    ``shape`` = (B, Na, Nb, D), always f32. The backward's FLOPs and bytes
+    are the counter's own, ``ops.flash_bwd_cost``."""
     label: str
     family: str
     shape: tuple[int, ...]
@@ -76,12 +91,18 @@ class Case:
     def peak(self) -> float:
         return PEAK_BF16 if self.dtype == torch.bfloat16 else PEAK_F32
 
+    def _bwd_cost(self) -> tuple[float, float]:
+        q = torch.empty(self.shape, dtype=self.dtype, device="meta")
+        return ops.flash_bwd_cost(q, q, q, causal=self.causal)[:2]
+
     def flops(self) -> float:
         if self.family == "flash":
             b, h, s, d = self.shape
             # causal: S * (S + 1) / 2 (query, key) pairs of 4 * D flops
             pairs = s * (s + 1) / 2 if self.causal else s * s
             return 4.0 * b * h * d * pairs
+        if self.family == "flash_bwd":
+            return self._bwd_cost()[0]
         if self.family == "decode":
             b, hq, _, _, d = self.shape
             return 4.0 * b * hq * self.length * d
@@ -93,6 +114,8 @@ class Case:
         if self.family == "flash":  # q, k, v read, out written; the f32 bias read
             b, _, s, _ = self.shape
             return 4.0 * math.prod(self.shape) * elt + (b * s * 4 if self.bias else 0)
+        if self.family == "flash_bwd":
+            return self._bwd_cost()[1]
         if self.family == "decode":  # the valid cache read once, q read, out written
             b, hq, hkv, _, d = self.shape
             return (2.0 * b * self.length * hkv * d + 2 * b * hq * d) * elt + b * 4
@@ -106,6 +129,8 @@ class Case:
         """The name of the kernel the wrapper routes this call to."""
         if self.family == "flash":
             return flash_mod.kernel_for(self.dtype, self.shape[-1])
+        if self.family == "flash_bwd":
+            return flash_mod.BWD[flash_mod.kernel_for(self.dtype, self.shape[-1])]
         if self.family == "decode":
             return decode_mod.kernel_for(self.dtype, self.shape[-1])
         return "tome_scores"
@@ -122,6 +147,13 @@ CASES = (
          causal=True),
     Case("starcoder2_decode_bf16", "decode", (8, 24, 2, 2048, 128), torch.bfloat16,
          length=1088),
+    # part 3: the flash backward at the train calls
+    Case("vit_l16_train_bwd_bf16", "flash_bwd", (32, 16, 577, 64), torch.bfloat16),
+    Case("lm_train_causal_bwd_bf16", "flash_bwd", (2, 24, 1024, 128), torch.bfloat16,
+         causal=True),
+    Case("vit_l16_f32_parity_bwd_f32", "flash_bwd", (4, 16, 577, 64), torch.float32),
+    # the smoke ViTs' head dim, D=16, at 577 tokens
+    Case("d16_bwd_f32", "flash_bwd", (8, 4, 577, 16), torch.float32),
 )
 
 
@@ -152,6 +184,21 @@ def _calls(case: Case, gen: torch.Generator):
                                                        is_causal=case.causal),
                 tol, "torch.nn.functional.scaled_dot_product_attention",
                 lambda got, want: flash_close(got, want))
+    if case.family == "flash_bwd":
+        q, k, v, dout = (torch.randn(case.shape, generator=gen, device=dev).to(case.dtype)
+                         for _ in range(4))
+        out, lse = flash_mod._forward(q, k, v, None, None, case.causal, True)
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        with torch.enable_grad():
+            sdpa_out = F.scaled_dot_product_attention(*leaves, is_causal=case.causal)
+        of_max = FLASH_BWD_F32_OF_MAX if case.dtype == torch.float32 else FLASH_BWD_BF16_OF_MAX
+        return (lambda: flash_mod.backward(q, k, v, out, dout, causal=case.causal, lse=lse),
+                lambda: ref.flash_attention_bwd_ref(q, k, v, out, dout, causal=case.causal),
+                lambda: torch.autograd.grad(sdpa_out, leaves, dout, retain_graph=True),
+                {"of_max_plain": of_max},
+                "torch.autograd.grad of torch.nn.functional.scaled_dot_product_attention "
+                "(the backward alone, its graph retained)",
+                lambda got, want: flash_bwd_close(got, want, of_max))
     if case.family == "decode":
         b, hq, hkv, s, d = case.shape
         q = torch.randn((b, hq, d), generator=gen, device=dev).to(case.dtype)
@@ -184,6 +231,14 @@ def flash_close(got, want) -> tuple[float, bool]:
         return _close(got, want, FLASH_F32)
     err, ok = _close(got, want, FLASH_BF16)
     return err, ok and err <= FLASH_BF16_REL * want.float().abs().max().item()
+
+
+def flash_bwd_close(got, want, of_max: float) -> tuple[float, bool]:
+    """max|kernel - plain| over dq, dk, dv, and whether it is within
+    ``of_max`` of the largest |plain| gradient."""
+    err = max((g.float() - w.float()).abs().max().item() for g, w in zip(got[:3], want[:3]))
+    scale = max(w.float().abs().max().item() for w in want[:3])
+    return err, all(bool(torch.isfinite(g).all()) for g in got[:3]) and err <= of_max * scale
 
 
 def tome_close(a, b, nb_len, got, want) -> tuple[float, bool]:
@@ -221,7 +276,7 @@ def measure(cases=CASES) -> list[dict]:
             raise RuntimeError(f"kernel_bench {case.family}/{case.label}: {case.kernel()} "
                                f"disagrees with its plain version (max_abs_err {err:.3e}, "
                                f"tol {tol})")
-        iters = 10 if case.causal else 30
+        iters = 10 if case.causal or case.family == "flash_bwd" else 30
         ms = time_ms(kernel, iters, queued=True)
         plain_ms = time_ms(plain, iters, queued=True)
         library_ms = time_ms(library, iters, queued=True)

@@ -15,6 +15,11 @@
 //   (its running max never rises above the -1e30 sentinel) outputs 0; the
 //   Pallas kernel returns an average of V there and its jnp oracle NaN, and
 //   such rows never occur on the main path (the cls token is always real).
+//   lse (nullable, [B, H, Sq] f32): each row's log-sum-exp m + log(l) of its
+//   scaled, clamped-bias, masked scores (natural units), for the backward
+//   (csrc/flash_attention_bwd.cu); +inf for a row with no unmasked key, so
+//   that the backward's exp(s - lse) is 0 there. The output does not depend
+//   on it.
 //
 // What bounds it on the H100: at the main path's largest call (B=8, H=16,
 // S=577, D=64, bf16) the work is 4*B*H*S^2*D = 10.9 GFLOP (11 us at the bf16
@@ -59,7 +64,7 @@ __global__ void __launch_bounds__(BQ)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const float* __restrict__ bias,
                  const int* __restrict__ kv_len, T* __restrict__ out,
-                 int H, int Sq, int Sk, int causal, float scale) {
+                 float* __restrict__ lse, int H, int Sq, int Sk, int causal, float scale) {
   constexpr int BK = D > 64 ? 32 : 64;
   __shared__ __align__(16) float ks[BK][D];
   __shared__ __align__(16) float vs[BK][D];
@@ -174,6 +179,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   if (!q_ok) return;
   const bool any_key = m > 0.5f * NEG;
   const float denom = fmaxf(l, 1e-30f);
+  if (lse != nullptr) lse[(size_t)bh * Sq + qi] = any_key ? m + logf(denom) : INFINITY;
   T* orow = out + ((size_t)bh * Sq + qi) * D;
 #pragma unroll
   for (int d = 0; d < D; ++d) orow[d] = from_f<T>(any_key ? acc[d] / denom : 0.f);
@@ -181,42 +187,47 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, const float* bias,
-           const int* kv_len, void* out, int B, int H, int Sq, int Sk,
+           const int* kv_len, void* out, float* lse, int B, int H, int Sq, int Sk,
            int causal, cudaStream_t stream) {
   const dim3 grid((Sq + BQ - 1) / BQ, B * H);
   const float scale = 1.0f / sqrtf((float)D);
   flash_fwd_kernel<T, D><<<grid, BQ, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      bias, kv_len, static_cast<T*>(out), H, Sq, Sk, causal, scale);
+      bias, kv_len, static_cast<T*>(out), lse, H, Sq, Sk, causal, scale);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int dispatch_d(const void* q, const void* k, const void* v, const float* bias,
-               const int* kv_len, void* out, int B, int H, int Sq, int Sk, int D,
-               int causal, cudaStream_t stream) {
+               const int* kv_len, void* out, float* lse, int B, int H, int Sq, int Sk,
+               int D, int causal, cudaStream_t stream) {
   switch (D) {
-    case 16: return launch<T, 16>(q, k, v, bias, kv_len, out, B, H, Sq, Sk, causal, stream);
-    case 32: return launch<T, 32>(q, k, v, bias, kv_len, out, B, H, Sq, Sk, causal, stream);
-    case 64: return launch<T, 64>(q, k, v, bias, kv_len, out, B, H, Sq, Sk, causal, stream);
-    case 128: return launch<T, 128>(q, k, v, bias, kv_len, out, B, H, Sq, Sk, causal, stream);
+    case 16: return launch<T, 16>(q, k, v, bias, kv_len, out, lse, B, H, Sq, Sk, causal,
+                                    stream);
+    case 32: return launch<T, 32>(q, k, v, bias, kv_len, out, lse, B, H, Sq, Sk, causal,
+                                    stream);
+    case 64: return launch<T, 64>(q, k, v, bias, kv_len, out, lse, B, H, Sq, Sk, causal,
+                                    stream);
+    case 128: return launch<T, 128>(q, k, v, bias, kv_len, out, lse, B, H, Sq, Sk, causal,
+                                    stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. bias / kv_len may be null. Returns the
-// cudaGetLastError() of the launch (0 on success).
+// dtype: 0 = float32, 1 = bfloat16. bias / kv_len / lse may be null. Returns
+// the cudaGetLastError() of the launch (0 on success).
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                                    const float* bias, const int* kv_len, void* out,
-                                   int B, int H, int Sq, int Sk, int D, int dtype,
-                                   int causal, void* stream) {
+                                   float* lse, int B, int H, int Sq, int Sk, int D,
+                                   int dtype, int causal, void* stream) {
   if (B <= 0 || H <= 0 || Sq <= 0 || Sk <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return dispatch_d<float>(q, k, v, bias, kv_len, out, B, H, Sq, Sk, D, causal, s);
+    return dispatch_d<float>(q, k, v, bias, kv_len, out, lse, B, H, Sq, Sk, D, causal, s);
   if (dtype == 1)
-    return dispatch_d<__nv_bfloat16>(q, k, v, bias, kv_len, out, B, H, Sq, Sk, D, causal, s);
+    return dispatch_d<__nv_bfloat16>(q, k, v, bias, kv_len, out, lse, B, H, Sq, Sk, D, causal,
+                                     s);
   return (int)cudaErrorInvalidValue;
 }

@@ -20,6 +20,11 @@
 //   are rounded to bf16 before P.V (the tensor cores' A operand); l sums the
 //   f32 weights. Scores are kept in log2 units (scale and bias times log2 e)
 //   so that exp2f does the exponentials.
+//   lse (nullable, [B, H, Sq] f32): each row's log-sum-exp of its scaled,
+//   clamped-bias, masked scores in natural units, (m + log2 l) * ln 2, for
+//   the backward (csrc/flash_attention_mma_bwd.cu); +inf for a row with no
+//   unmasked key, so that the backward's exp(s - lse) is 0 there. Serving
+//   passes null; the output does not depend on it.
 //
 // What bounds it on the H100: the LM prefill call [8, 24, 1024, 128] causal
 // is 51.6 GFLOP (52 us at the 989 TFLOP/s bf16 tensor-core peak) over 201 MB
@@ -70,6 +75,7 @@ constexpr int BK = 64;          // keys per tile
 constexpr int STAGES = 2;       // K/V ring depth
 constexpr float NEG = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 template <int D>
 struct Layout {
@@ -145,7 +151,8 @@ __global__ void __launch_bounds__(THREADS)
 flash_mma_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                      const __nv_bfloat16* __restrict__ v, const float* __restrict__ bias,
                      const int* __restrict__ kv_len, __nv_bfloat16* __restrict__ out,
-                     int H, int Sq, int Sk, int causal, float scale_log2) {
+                     float* __restrict__ lse, int H, int Sq, int Sk, int causal,
+                     float scale_log2) {
   using L = Layout<D>;
   constexpr int LD = L::LD;
   constexpr int CH = D / 8;    // 16-byte chunks per row
@@ -312,6 +319,10 @@ flash_mma_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
   l1 = quad_sum(l1);
   const bool any0 = m0 > 0.5f * NEG, any1 = m1 > 0.5f * NEG;
   const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
+  if (lse != nullptr && t4 == 0) {
+    if (row0 < Sq) lse[(size_t)bh * Sq + row0] = any0 ? (m0 + log2f(d0)) * LN2 : INFINITY;
+    if (row0 + 8 < Sq) lse[(size_t)bh * Sq + row0 + 8] = any1 ? (m1 + log2f(d1)) * LN2 : INFINITY;
+  }
   __nv_bfloat16* os = qs + warp * 16 * LD;
 #pragma unroll
   for (int db = 0; db < DB; ++db) {
@@ -334,7 +345,8 @@ flash_mma_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
 
 template <int D>
 int launch(const void* q, const void* k, const void* v, const float* bias, const int* kv_len,
-           void* out, int B, int H, int Sq, int Sk, int causal, cudaStream_t stream) {
+           void* out, float* lse, int B, int H, int Sq, int Sk, int causal,
+           cudaStream_t stream) {
   const int n_q_tiles = (Sq + BQ - 1) / BQ;
   if (n_q_tiles > 65535) return (int)cudaErrorInvalidValue;
   const size_t smem = Layout<D>::BYTES;
@@ -345,24 +357,24 @@ int launch(const void* q, const void* k, const void* v, const float* bias, const
   const float scale_log2 = LOG2E / sqrtf((float)D);
   flash_mma_fwd_kernel<D><<<grid, THREADS, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), bias, kv_len, static_cast<__nv_bfloat16*>(out), H,
-      Sq, Sk, causal, scale_log2);
+      static_cast<const __nv_bfloat16*>(v), bias, kv_len, static_cast<__nv_bfloat16*>(out), lse,
+      H, Sq, Sk, causal, scale_log2);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// bf16 only; D 64 or 128. bias / kv_len may be null. Returns the
+// bf16 only; D 64 or 128. bias / kv_len / lse may be null. Returns the
 // cudaGetLastError() of the launch (0 on success).
 extern "C" int flash_attention_mma_fwd(const void* q, const void* k, const void* v,
                                        const float* bias, const int* kv_len, void* out,
-                                       int B, int H, int Sq, int Sk, int D, int causal,
-                                       void* stream) {
+                                       float* lse, int B, int H, int Sq, int Sk, int D,
+                                       int causal, void* stream) {
   if (B <= 0 || H <= 0 || Sq <= 0 || Sk <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 64: return launch<64>(q, k, v, bias, kv_len, out, B, H, Sq, Sk, causal, s);
-    case 128: return launch<128>(q, k, v, bias, kv_len, out, B, H, Sq, Sk, causal, s);
+    case 64: return launch<64>(q, k, v, bias, kv_len, out, lse, B, H, Sq, Sk, causal, s);
+    case 128: return launch<128>(q, k, v, bias, kv_len, out, lse, B, H, Sq, Sk, causal, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

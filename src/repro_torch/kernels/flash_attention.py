@@ -1,4 +1,4 @@
-"""Wrapper of the Hopper flash-attention kernels.
+"""Wrapper of the Hopper flash-attention kernels and of their gradient.
 
 Replaces ``repro.kernels.flash_attention.flash_attention`` (Pallas). Two
 kernels compute it; which one serves a call is a pure function of (dtype,
@@ -15,35 +15,45 @@ kernels, ``launches_mma`` those of the tensor-core kernel.
 
 Gradient: when grad mode is on and q, k, v or the bias requires grad, the
 call goes through ``_FlashAttention``, a ``torch.autograd.Function`` whose
-forward is the same kernel (or, on a CPU tensor, the same plain version)
-and whose ``backward`` is explicit PyTorch on both devices. The reference
-has no backward kernel: its models train through the jnp ``layers.sdpa``,
-which XLA differentiates outside any Pallas kernel, so plain products are
-the counterpart here. ``backward`` recomputes the f32 scores from q and k
-(bf16 operands, exact in f32, f32 products), takes the f32 softmax P, then
-``dP = dO V^T`` (an f32 product), ``dS = P * (dP - rowsum(dO * O))``,
-``dV = P^T dO``, ``dQ = dS K / sqrt(D)`` and ``dK = dS^T Q / sqrt(D)``; P and
-dS are rounded to q's dtype before the products that give dV, dQ and dK, as
-FlashAttention-2's backward does (with f32 inputs everything is f32).
-Fully masked rows, which output 0, get zero gradient. Its time is
-quadratic f32 passes over ``[B, H, Sq, Sk]``; a backward kernel is queued
-(ROADMAP queue 2).
+forward is the same kernel (which then also writes each row's log-sum-exp)
+and whose backward is ``backward``, a dispatcher like the forward's: on a
+CUDA tensor the backward kernel of the forward's route,
+``csrc/flash_attention_mma_bwd.cu`` (tensor cores, bf16 at D 64/128) or
+``csrc/flash_attention_bwd.cu`` (CUDA-core f32 math, the rest); on a CPU
+tensor the plain ``ref.flash_attention_bwd_ref``. ``launches_bwd`` counts
+backward calls on both kernels (each call is two launches: the dQ pass,
+then the dK/dV pass), ``launches_bwd_mma`` those on the tensor-core one.
+The reference has no backward kernel: its models train through the jnp
+``layers.sdpa``, which XLA differentiates; the port computes the same
+gradient. Both routes share the plain version's arithmetic: the f32 scores
+are recomputed from q and k (exact products of the inputs), P is the f32
+softmax (the kernels take it as ``exp(s - lse)`` with the forward's
+log-sum-exp), ``dP = dO V^T`` in f32, ``dS = P * (dP - rowsum(dO * O))``,
+``dV = P^T dO``, ``dQ = dS K / sqrt(D)`` and ``dK = dS^T Q / sqrt(D)``; P
+and dS are rounded to q's dtype before the products that give dV, dQ and dK,
+as FlashAttention-2's backward does (with f32 inputs everything is f32).
+Fully masked rows, which output 0, get zero gradient, and keys that no query
+sees get dK = dV = 0. The kernels sum without atomics, so a gradient is the
+same bit for bit from run to run.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-import math
 
 import torch
 
 from repro_torch.kernels import _build, ref
+from repro_torch.runtime import hlo_bytes
 
 launches = 0
 launches_mma = 0
+launches_bwd = 0
+launches_bwd_mma = 0
 
 CUDA_CORE = "flash_attention"    # kernel names are their sources' names
 MMA = "flash_attention_mma"
+BWD = {CUDA_CORE: "flash_attention_bwd", MMA: "flash_attention_mma_bwd"}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (16, 32, 64, 128)
 _MMA_HEAD_DIMS = (64, 128)
@@ -52,7 +62,8 @@ _MMA_HEAD_DIMS = (64, 128)
 def kernel_for(dtype: torch.dtype, d: int) -> str:
     """The kernel that serves a call with q/k/v of ``dtype`` and head dim
     ``d``: ``MMA`` for bf16 at D 64 and 128, else ``CUDA_CORE``. Raises
-    TypeError for another dtype and ValueError for another head dim."""
+    TypeError for another dtype and ValueError for another head dim. Its
+    gradient runs on ``BWD[kernel_for(dtype, d)]``."""
     if dtype not in _DTYPES:
         raise TypeError(f"flash_attention: dtype {dtype}; need float32 or bfloat16")
     if d not in _HEAD_DIMS:
@@ -62,12 +73,25 @@ def kernel_for(dtype: torch.dtype, d: int) -> str:
 
 @functools.cache
 def _fn(name: str):
-    """The C entry ``<name>_fwd``: q, k, v, bias, kv_len, out, then B, H, Sq,
-    Sk, D, the dtype code (the CUDA-core kernel only; the tensor-core one is
-    bf16 only), causal and the stream."""
+    """The C entry ``<name>_fwd``: q, k, v, bias, kv_len, out, lse, then B, H,
+    Sq, Sk, D, the dtype code (the CUDA-core kernel only; the tensor-core one
+    is bf16 only), causal and the stream."""
     fn = getattr(_build.load(name), f"{name}_fwd")
     n_ints = 7 if name == CUDA_CORE else 6
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * n_ints + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * n_ints + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
+def _bwd_fn(name: str):
+    """The C entry of backward kernel ``name`` (``BWD``'s values): q, k, v,
+    out, dout, lse, bias, kv_len, dq, dk, dv, the per-head dbias sums, the
+    rowsum(dO * O) scratch, then B, H, Sq, Sk, D, the dtype code (the
+    CUDA-core kernel only), causal and the stream."""
+    fn = getattr(_build.load(name), name)
+    n_ints = 7 if name == BWD[CUDA_CORE] else 6
+    fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * n_ints + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -91,82 +115,87 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, bias, kv_len, causal):
-        out = _forward(q, k, v, bias, kv_len, causal)
-        ctx.save_for_backward(q, k, v, out, bias, kv_len)
+        out, lse = _forward(q, k, v, bias, kv_len, causal, True)
+        ctx.save_for_backward(q, k, v, out, bias, kv_len, lse)
         ctx.causal = causal
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, out, bias, kv_len = ctx.saved_tensors
+        from repro_torch.kernels import ops  # ops imports this module
+
+        q, k, v, out, bias, kv_len, lse = ctx.saved_tensors
         need_bias = bias is not None and ctx.needs_input_grad[3]
-        dq, dk, dv, dbias = backward(q, k, v, out, dout, bias=bias, kv_len=kv_len,
-                                     causal=ctx.causal, need_bias=need_bias)
+        dq, dk, dv, dbias = hlo_bytes.kernel(
+            "flash_attention_bwd",
+            lambda: ops.flash_bwd_cost(q, k, v, bias, kv_len, ctx.causal, need_bias),
+            lambda: backward(q, k, v, out, dout, bias=bias, kv_len=kv_len, causal=ctx.causal,
+                             need_bias=need_bias, lse=lse))
         return dq, dk, dv, dbias, None, None
 
 
 def backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
              dout: torch.Tensor, *, bias: torch.Tensor | None = None,
              kv_len: torch.Tensor | None = None, causal: bool = False,
-             need_bias: bool = False):
+             need_bias: bool = False, lse: torch.Tensor | None = None):
     """(dq, dk, dv, dbias) of ``flash_attention`` at (q, k, v, bias) with
-    output ``out`` and its gradient ``dout``; ``dbias`` [B, Sk] f32 when
-    ``need_bias``, else None. Plain PyTorch on any device (the module's
-    docstring gives the arithmetic); the masks are the forward's. The
-    quadratic tensors are few passes: the scale rides on the S product,
-    ``dP - rowsum(dO * O)`` is one product with a broadcast addend, and
-    ``P * (dP - D)`` is written straight in q's dtype when no f32 dS is
-    needed (bf16 without a bias gradient)."""
+    output ``out``, its gradient ``dout`` and, on a CUDA tensor, the
+    forward's log-sum-exp ``lse`` [B, H, Sq] f32; ``dbias`` [B, Sk] f32 when
+    ``need_bias``, else None. On a CUDA tensor the backward kernel of the
+    forward's route (``BWD[kernel_for(dtype, D)]``), on a CPU tensor the
+    plain ``ref.flash_attention_bwd_ref``; anything else raises."""
+    if q.device.type == "cpu":
+        return ref.flash_attention_bwd_ref(q, k, v, out, dout, bias=bias, kv_len=kv_len,
+                                           causal=causal, need_bias=need_bias)
+    kernel = _checked(q, k, v, bias, kv_len)
     b, h, sq, d = q.shape
     sk = k.shape[2]
-    scale = 1.0 / math.sqrt(d)
-    q3, k3, v3 = (t.reshape(b * h, -1, d) for t in (q, k, v))
-    do3 = dout.reshape(b * h, sq, d)
-    zero = torch.zeros((), dtype=torch.float32, device=q.device)
-    s = torch.baddbmm(zero, q3.float(), k3.float().transpose(1, 2), beta=0.0, alpha=scale)
-    s = s.view(b, h, sq, sk)
-    if bias is not None:
-        s.add_(bias.float().clamp_min(ref.NEG)[:, None, None, :])
-    mask = None
-    kpos = torch.arange(sk, device=q.device)
-    if kv_len is not None:
-        mask = (kpos[None, :] < kv_len.to(q.device)[:, None])[:, None, None, :]
-    if causal:
-        qpos = torch.arange(sq, device=q.device)
-        cmask = qpos[:, None] + (sk - sq) >= kpos[None, :]
-        mask = cmask if mask is None else mask & cmask
-    if mask is not None:
-        s.masked_fill_(~mask, ref.NEG)
-    p = torch.softmax(s, dim=-1)
-    if mask is not None or bias is not None:  # rows with no unmasked key output 0
-        p.mul_(s.amax(dim=-1, keepdim=True) > 0.5 * ref.NEG)
-    del s
-    p = p.view(b * h, sq, sk)
-    dv = torch.bmm(p.to(q.dtype).transpose(1, 2), do3.to(q.dtype))
-    rowsum = (dout.float() * out.float()).sum(dim=-1).reshape(b * h, sq, 1)
-    ds = torch.baddbmm(rowsum, do3.float(), v3.float().transpose(1, 2), beta=-1.0)
+    for name, t, dtype in (("out", out, q.dtype), ("dout", dout, q.dtype),
+                           ("lse", lse, torch.float32)):
+        want = (b, h, sq) if name == "lse" else q.shape
+        if t is None or t.shape != want or t.dtype != dtype or t.device != q.device:
+            raise ValueError(f"flash_attention backward: {name} must be {dtype} "
+                             f"{tuple(want)} on {q.device}, got "
+                             + ("None" if t is None else f"{t.dtype} {tuple(t.shape)} "
+                                                         f"on {t.device}"))
+    if need_bias and bias is None:
+        raise ValueError("flash_attention backward: need_bias without a bias")
+    # the gradient autograd hands over may be a strided or offset view: the
+    # kernels read rows of 16 bytes
+    out, dout = (t if t.is_contiguous() and t.data_ptr() % 16 == 0
+                 else t.clone(memory_format=torch.contiguous_format) for t in (out, dout))
+    lse = lse.contiguous()
+
+    global launches_bwd, launches_bwd_mma
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    rowsum = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    part = (torch.empty((b, h, sk), dtype=torch.float32, device=q.device) if need_bias
+            else None)
+    name = BWD[kernel]
+    dtype = [] if kernel == MMA else [_DTYPES[q.dtype]]
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = _bwd_fn(name)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), None if bias is None else bias.data_ptr(),
+            None if kv_len is None else kv_len.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), None if part is None else part.data_ptr(), rowsum.data_ptr(),
+            b, h, sq, sk, d, *dtype, int(causal), stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
+    launches_bwd += 1
+    if kernel == MMA:
+        launches_bwd_mma += 1
     dbias = None
-    if q.dtype == torch.float32 or need_bias:
-        ds.mul_(p)
-        if need_bias:
-            dbias = ds.view(b, h, sq, sk).sum(dim=(1, 2)) * (bias.float() >= ref.NEG)
-        ds_lp = ds.to(q.dtype)
-    else:
-        ds_lp = torch.mul(ds, p, out=torch.empty_like(ds, dtype=q.dtype))
-    del ds, p
-    zero = torch.zeros((), dtype=q.dtype, device=q.device)
-    dq = torch.baddbmm(zero, ds_lp, k3, beta=0.0, alpha=scale)
-    dk = torch.baddbmm(zero, ds_lp.transpose(1, 2), q3, beta=0.0, alpha=scale)
-    return (dq.view(b, h, sq, d), dk.view(b, h, sk, d), dv.to(v.dtype).view(b, h, sk, d),
-            dbias)
+    if need_bias:  # the kernel's per-head sums of the f32 dS; zero where clamped
+        dbias = part.sum(dim=1) * (bias >= ref.NEG)
+    return dq, dk, dv, dbias
 
 
-def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-             bias: torch.Tensor | None, kv_len: torch.Tensor | None,
-             causal: bool) -> torch.Tensor:
-    """The kernel on a CUDA tensor, the plain version on a CPU tensor."""
-    if q.device.type == "cpu":
-        return ref.flash_attention_ref(q, k, v, bias=bias, kv_len=kv_len, causal=causal)
+def _checked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             bias: torch.Tensor | None, kv_len: torch.Tensor | None) -> str:
+    """The kernel that serves these operands on a CUDA device; raises on an
+    operand the kernels do not take."""
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     if q.dim() != 4 or k.shape != v.shape or k.dim() != 4:
@@ -200,19 +229,36 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError("flash_attention: operands must be contiguous")
     if kernel == MMA and any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("flash_attention: bf16 q/k/v must start on a 16-byte boundary")
+    return kernel
+
+
+def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             bias: torch.Tensor | None, kv_len: torch.Tensor | None,
+             causal: bool, with_lse: bool = False):
+    """The kernel on a CUDA tensor, the plain version on a CPU tensor. With
+    ``with_lse``, (out, lse): the kernel also writes each row's log-sum-exp
+    [B, H, Sq] f32 for the backward (None on a CPU tensor, whose backward is
+    the plain version)."""
+    if q.device.type == "cpu":
+        out = ref.flash_attention_ref(q, k, v, bias=bias, kv_len=kv_len, causal=causal)
+        return (out, None) if with_lse else out
+    kernel = _checked(q, k, v, bias, kv_len)
+    b, h, sq, d = q.shape
 
     global launches, launches_mma
     out = torch.empty_like(q)
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device) if with_lse else None
     dtype = [] if kernel == MMA else [_DTYPES[q.dtype]]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = _fn(kernel)(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                           None if bias is None else bias.data_ptr(),
                           None if kv_len is None else kv_len.data_ptr(),
-                          out.data_ptr(), b, h, sq, sk, d, *dtype, int(causal), stream)
+                          out.data_ptr(), None if lse is None else lse.data_ptr(),
+                          b, h, sq, k.shape[2], d, *dtype, int(causal), stream)
     if err != 0:
         raise RuntimeError(f"{kernel} kernel launch failed: cudaError {err}")
     launches += 1
     if kernel == MMA:
         launches_mma += 1
-    return out
+    return (out, lse) if with_lse else out

@@ -20,7 +20,10 @@ Every call reports itself to the active per-rank counters
 kernel's FLOPs and bytes (inputs read once, outputs written once, as
 ``chip_smoke.py``'s bounds), with dispatch counting paused inside, so the
 plain version's materialised scores are not counted where it stands in
-for the kernel. A masked key (``kv_len``, a decode's ``lengths``) is data,
+for the kernel. The flash backward reports itself the same way, as
+``flash_attention_bwd`` at ``flash_bwd_cost``, from the kernel's autograd
+Function on every route of the wrapper (under ``plain_versions()`` autograd
+differentiates the plain forward, whose operations are counted as such). A masked key (``kv_len``, a decode's ``lengths``) is data,
 which a fake tensor does not have: the count takes every key of the call.
 """
 from __future__ import annotations
@@ -57,19 +60,38 @@ def _bytes(*tensors) -> float:
     return float(sum(t.numel() * t.element_size() for t in tensors if t is not None))
 
 
+def _pairs(sq: int, sk: int, causal: bool) -> int:
+    """(query, key) pairs a flash call computes: every pair, or the causal
+    ones (bottom-right aligned: query i sees keys 0 .. i + sk - sq)."""
+    if causal and sk >= sq:
+        return sq * (sk - sq + 1) + sq * (sq - 1) // 2
+    if causal:
+        return sum(max(0, i + sk - sq + 1) for i in range(sq))
+    return sq * sk
+
+
 def flash_cost(q, k, v, bias=None, kv_len=None, causal: bool = False):
     """(FLOPs, bytes, dtype) of one flash call: 4*D FLOPs a (query, key)
     pair, every pair or the causal ones (bottom-right aligned); q, k, v,
     bias and kv_len read once, the output written once."""
     b, h, sq, d = q.shape
+    return (4.0 * b * h * d * _pairs(sq, k.shape[2], causal),
+            _bytes(q, k, v, bias, kv_len) + _bytes(q), q.dtype)
+
+
+def flash_bwd_cost(q, k, v, bias=None, kv_len=None, causal: bool = False,
+                   need_bias: bool = False):
+    """(FLOPs, bytes, dtype) of one flash backward call: five products of
+    2*D FLOPs a (query, key) pair (S, dP, dV, dQ, dK); q, k, v, the output,
+    its gradient, the f32 log-sum-exp [B, H, Sq], bias and kv_len read once;
+    dq, dk, dv (and the f32 dbias [B, Sk]) written once."""
+    b, h, sq, d = q.shape
     sk = k.shape[2]
-    if causal and sk >= sq:  # query i sees keys 0 .. i + sk - sq
-        pairs = sq * (sk - sq + 1) + sq * (sq - 1) // 2
-    elif causal:
-        pairs = sum(max(0, i + sk - sq + 1) for i in range(sq))
-    else:
-        pairs = sq * sk
-    return (4.0 * b * h * d * pairs, _bytes(q, k, v, bias, kv_len) + _bytes(q), q.dtype)
+    lse = b * h * sq * 4.0
+    dbias = b * sk * 4.0 if need_bias else 0.0
+    return (10.0 * b * h * d * _pairs(sq, sk, causal),
+            _bytes(q, k, v, bias, kv_len) + 2 * _bytes(q) + lse + _bytes(q, k, v) + dbias,
+            q.dtype)
 
 
 def tome_cost(a, b, nb_len=None):

@@ -1,9 +1,10 @@
 """Plain PyTorch versions of the port's kernels.
 
 The wrappers use them for CPU tensors; the tests and the card phase of
-``chip_smoke.py`` hold the CUDA kernels against them. They compute exactly
-the kernels' functions, including ``nb_len`` and fully masked rows, and
-repeat the kernels' f32 arithmetic (they are no yardstick of speed).
+``chip_smoke.py`` hold the CUDA kernels against them (``flash_attention_bwd_ref``
+the flash backward kernels). They compute exactly the kernels' functions,
+including ``nb_len`` and fully masked rows, and repeat the kernels' f32
+arithmetic (they are no yardstick of speed).
 """
 from __future__ import annotations
 
@@ -42,6 +43,71 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = torch.where(m > 0.5 * NEG, out, torch.zeros_like(out))
     return out.to(q.dtype)
 
+
+
+def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            out: torch.Tensor, dout: torch.Tensor, *,
+                            bias: torch.Tensor | None = None,
+                            kv_len: torch.Tensor | None = None, causal: bool = False,
+                            need_bias: bool = False):
+    """(dq, dk, dv, dbias) of ``flash_attention_ref`` at (q, k, v, bias) with
+    output ``out`` and its gradient ``dout``; ``dbias`` [B, Sk] f32 when
+    ``need_bias``, else None. The backward kernels' arithmetic and rounding
+    points: f32 scores recomputed from q and k (exact products of the
+    inputs), the f32 softmax P, ``dP = dO V^T`` in f32,
+    ``dS = P * (dP - rowsum(dO * O))``, ``dV = P^T dO``,
+    ``dQ = dS K / sqrt(D)`` and ``dK = dS^T Q / sqrt(D)``, P and dS rounded
+    to q's dtype before the products that give dV, dQ and dK
+    (FlashAttention-2's backward; with f32 inputs everything is f32). The
+    masks are the forward's; fully masked rows, which output 0, get zero
+    gradient, and so do keys that no query sees. ``dbias`` sums the f32 dS
+    over heads and queries, zero where the bias is below -1e30 (the clamp).
+    The quadratic tensors are few passes: the scale rides on the S product,
+    ``dP - rowsum(dO * O)`` is one product with a broadcast addend, and
+    ``P * (dP - D)`` is written straight in q's dtype when no f32 dS is
+    needed (bf16 without a bias gradient)."""
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    scale = 1.0 / math.sqrt(d)
+    q3, k3, v3 = (t.reshape(b * h, -1, d) for t in (q, k, v))
+    do3 = dout.reshape(b * h, sq, d)
+    zero = torch.zeros((), dtype=torch.float32, device=q.device)
+    s = torch.baddbmm(zero, q3.float(), k3.float().transpose(1, 2), beta=0.0, alpha=scale)
+    s = s.view(b, h, sq, sk)
+    if bias is not None:
+        s.add_(bias.float().clamp_min(NEG)[:, None, None, :])
+    mask = None
+    kpos = torch.arange(sk, device=q.device)
+    if kv_len is not None:
+        mask = (kpos[None, :] < kv_len.to(q.device)[:, None])[:, None, None, :]
+    if causal:
+        qpos = torch.arange(sq, device=q.device)
+        cmask = qpos[:, None] + (sk - sq) >= kpos[None, :]
+        mask = cmask if mask is None else mask & cmask
+    if mask is not None:
+        s.masked_fill_(~mask, NEG)
+    p = torch.softmax(s, dim=-1)
+    if mask is not None or bias is not None:  # rows with no unmasked key output 0
+        p.mul_(s.amax(dim=-1, keepdim=True) > 0.5 * NEG)
+    del s
+    p = p.view(b * h, sq, sk)
+    dv = torch.bmm(p.to(q.dtype).transpose(1, 2), do3.to(q.dtype))
+    rowsum = (dout.float() * out.float()).sum(dim=-1).reshape(b * h, sq, 1)
+    ds = torch.baddbmm(rowsum, do3.float(), v3.float().transpose(1, 2), beta=-1.0)
+    dbias = None
+    if q.dtype == torch.float32 or need_bias:
+        ds.mul_(p)
+        if need_bias:
+            dbias = ds.view(b, h, sq, sk).sum(dim=(1, 2)) * (bias.float() >= NEG)
+        ds_lp = ds.to(q.dtype)
+    else:
+        ds_lp = torch.mul(ds, p, out=torch.empty_like(ds, dtype=q.dtype))
+    del ds, p
+    zero = torch.zeros((), dtype=q.dtype, device=q.device)
+    dq = torch.baddbmm(zero, ds_lp, k3, beta=0.0, alpha=scale)
+    dk = torch.baddbmm(zero, ds_lp.transpose(1, 2), q3, beta=0.0, alpha=scale)
+    return (dq.view(b, h, sq, d), dk.view(b, h, sk, d), dv.to(v.dtype).view(b, h, sk, d),
+            dbias)
 
 def tome_scores_ref(a: torch.Tensor, b: torch.Tensor,
                     nb_len: torch.Tensor | None = None):

@@ -14,12 +14,14 @@ the CPU) and, beside it, 3e-2 of max|plain| (at thousands of keys an output
 is ~sqrt(e/S) ~ 0.025, so 2e-2 alone would pass a wrong kernel); tome max atol 2e-5 / rtol 1e-3 and argmax
 by score at the chosen index (``tests/test_kernels.py``'s own); decode as
 flash. The flash and decode tests assert which kernel launched
-(``launches_mma``). The flash backward (the kernel's forward, the explicit
-PyTorch backward) against autograd of the plain version in f32: f32 within
-1e-4 of max|g|, bf16 within 1e-2 of max|g| (P, dS and the gradients rounded
-to bf16 once; sound readings 2.7e-3 to 3.9e-3 at the train shapes, a
-backward without dS's rowsum term or with a key tile's dK and dV dropped
-0.32 and above, ``chip_smoke.py``'s ``[train]`` phase).
+(``launches_mma``). The flash backward (the kernel's forward, the backward
+kernels) against autograd of the plain version in f32: f32 within 1e-4 of
+max|g|, bf16 within 1e-2 of max|g| (P, dS and the gradients rounded to bf16
+once; sound readings 2.7e-3 to 3.9e-3 at the train shapes, a backward
+without dS's rowsum term or with a key tile's dK and dV dropped 0.32 and
+above, ``chip_smoke.py``'s ``[train]`` phase); the backward kernels against
+the plain backward ``ref.flash_attention_bwd_ref`` on the same inputs, with
+the same limits (both round at the same points; only sums differ in order).
 """
 import pytest
 import torch
@@ -363,12 +365,19 @@ def _grads_through(fn, leaves, dout):
                                          (1, 2, 70, 200, 64)])
 @pytest.mark.parametrize("mode", ["plain", "causal", "kv_len", "bias"])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
-def test_flash_backward_matches_autograd_of_plain_on_card(cuda, b, h, sq, sk, d, mode, dtype):
+def test_flash_backward_matches_autograd_of_plain_on_card(cuda, b, h, sq, sk, d, mode, dtype,
+                                                          monkeypatch):
     """dq/dk/dv (and dbias) through the kernel's autograd Function against
     autograd of the plain version in f32 on the same inputs: f32 within 1e-4
     of max|g| (full f32 products; the kernel's output enters only through
     rowsum(dO * O)), bf16 within 1e-2 of max|g| (P, dS and the gradients
-    rounded to bf16 once, the forward's output from the bf16 kernel)."""
+    rounded to bf16 once, the forward's output from the bf16 kernel). The
+    backward runs on the backward kernel of the forward's route, never on
+    the plain backward."""
+    def plain_backward(*args, **kw):
+        raise AssertionError("the plain backward ran on a CUDA tensor")
+
+    monkeypatch.setattr(ref, "flash_attention_bwd_ref", plain_backward)
     torch.backends.cuda.matmul.allow_tf32 = False
     gen, q, k, v, bias = _flash_case(cuda, b, h, sq, sk, d, dtype, seed=21)
     kw = {}
@@ -388,15 +397,122 @@ def test_flash_backward_matches_autograd_of_plain_on_card(cuda, b, h, sq, sk, d,
     def plain(q, k, v, bias=None):
         return ref.flash_attention_ref(q, k, v, bias=bias, **kw)
 
-    before = flash_mod.launches
+    before = flash_mod.launches, flash_mod.launches_bwd, flash_mod.launches_bwd_mma
     got = _grads_through(kernel, leaves, dout)
-    assert flash_mod.launches == before + 1  # the forward ran the kernel
+    mma = flash_mod.kernel_for(dtype, d) == flash_mod.MMA
+    # the forward ran the kernel, the backward its backward kernel
+    assert (flash_mod.launches, flash_mod.launches_bwd, flash_mod.launches_bwd_mma) == (
+        before[0] + 1, before[1] + 1, before[2] + mma)
     pf = [t.detach().float().requires_grad_() for t in leaves]
     exp = _grads_through(plain, pf, dout.float())
     tol = 1e-4 if dtype == torch.float32 else BWD_BF16_OF_MAX
     for g, e in zip(got, exp):
         assert torch.isfinite(g).all()
         torch.testing.assert_close(g.float(), e, rtol=0, atol=tol * float(e.abs().max()))
+
+
+def _bwd_case(cuda, d, mode, dtype, seed=23):
+    """Inputs of one backward call: B=2, H=3, ragged lengths (Sq > Sk under
+    causal, so the first queries see no key); ``mode`` adds the bias (with
+    -inf pads), kv_len [0, 97] (member 0 sees no key, member 1 only keys
+    before 97) and the causal mask."""
+    sq, sk = (150, 130) if "causal" in mode else (130, 150)
+    gen, q, k, v, bias = _flash_case(cuda, 2, 3, sq, sk, d, dtype, seed=seed)
+    kw = {"causal": "causal" in mode}
+    if "bias" in mode:
+        kw["bias"] = bias
+    if "kv_len" in mode:
+        kw["kv_len"] = torch.tensor([0, 97], dtype=torch.int32, device=cuda)
+    dout = torch.randn((2, 3, sq, d), generator=gen, device=cuda).to(dtype)
+    return q, k, v, dout, kw
+
+
+def _kernel_backward(q, k, v, dout, kw):
+    out, lse = flash_mod._forward(q, k, v, kw.get("bias"), kw.get("kv_len"), kw["causal"], True)
+    grads = flash_mod.backward(q, k, v, out, dout, need_bias="bias" in kw, lse=lse, **kw)
+    torch.cuda.synchronize()
+    return out, grads
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("mode", ["bias", "kv_len", "causal", "bias+kv_len+causal"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_flash_backward_kernel_matches_plain_backward_on_card(cuda, d, mode, dtype):
+    """The backward kernel of each route against ``ref.flash_attention_bwd_ref``
+    on the same inputs (the kernel's forward output and its log-sum-exp):
+    f32 within 1e-4 of max|g|, bf16 within BWD_BF16_OF_MAX; dbias summed over
+    heads and zero at the -inf pads; a kv_len-0 member's gradients all 0,
+    and keys past kv_len exactly 0 in dK and dV."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v, dout, kw = _bwd_case(cuda, d, mode, dtype)
+    mma = flash_mod.kernel_for(dtype, d) == flash_mod.MMA
+    before = flash_mod.launches_bwd, flash_mod.launches_bwd_mma
+    out, got = _kernel_backward(q, k, v, dout, kw)
+    assert (flash_mod.launches_bwd, flash_mod.launches_bwd_mma) == (before[0] + 1,
+                                                                    before[1] + mma)
+    exp = ref.flash_attention_bwd_ref(q, k, v, out, dout, need_bias="bias" in kw, **kw)
+    tol = 1e-4 if dtype == torch.float32 else BWD_BF16_OF_MAX
+    for name, g, e in zip(("dq", "dk", "dv", "dbias"), got, exp):
+        if e is None:
+            assert g is None, name
+            continue
+        assert g.shape == e.shape and g.dtype == e.dtype and torch.isfinite(g).all(), name
+        torch.testing.assert_close(g.float(), e.float(), rtol=0,
+                                   atol=tol * float(e.float().abs().max()), msg=name)
+    if "bias" in kw:
+        assert torch.all(got[3][:, -3:] == 0)  # the -inf pads
+    if "kv_len" in kw:
+        assert all(float(g[0].abs().max()) == 0 for g in got[:3])
+        assert torch.all(got[1][1, :, 97:] == 0) and torch.all(got[2][1, :, 97:] == 0)
+    if kw["causal"]:  # Sq > Sk: the first Sq - Sk queries see no key
+        assert torch.all(got[0][:, :, :20] == 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d,dtype", [(64, torch.bfloat16), (128, torch.bfloat16),
+                                     (32, torch.bfloat16), (64, torch.float32)],
+                         ids=["mma-64", "mma-128", "cuda-core-bf16-32", "cuda-core-f32-64"])
+def test_flash_backward_kernels_are_deterministic_on_card(cuda, d, dtype):
+    """No atomics: two runs of the backward give the same bits."""
+    q, k, v, dout, kw = _bwd_case(cuda, d, "bias+kv_len+causal", dtype, seed=24)
+    _, first = _kernel_backward(q, k, v, dout, kw)
+    _, second = _kernel_backward(q, k, v, dout, kw)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d,dtype", [(64, torch.bfloat16), (128, torch.bfloat16),
+                                     (16, torch.bfloat16), (64, torch.float32),
+                                     (128, torch.float32)])
+@pytest.mark.parametrize("mode", ["bias", "bias+kv_len+causal"])
+def test_flash_forward_lse_leaves_the_output_unchanged_on_card(cuda, d, dtype, mode):
+    """The forward's output with the log-sum-exp written equals its output
+    without, bit for bit; the log-sum-exp is the plain scores' (natural
+    units, f32 within 1e-5 of its size) and +inf on a row with no unmasked
+    key."""
+    q, k, v, _, kw = _bwd_case(cuda, d, mode, dtype, seed=25)
+    args = (q, k, v, kw.get("bias"), kw.get("kv_len"), kw["causal"])
+    plain_out = flash_mod._forward(*args)
+    out, lse = flash_mod._forward(*args, True)
+    torch.cuda.synchronize()
+    assert torch.equal(out, plain_out) and lse.shape == q.shape[:3]
+    sq, sk = q.shape[2], k.shape[2]
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) / d ** 0.5
+    if "bias" in kw:
+        s = s + kw["bias"].clamp_min(ref.NEG)[:, None, None, :]
+    kpos, qpos = torch.arange(sk, device=cuda), torch.arange(sq, device=cuda)
+    mask = torch.ones((2, 1, sq, sk), dtype=torch.bool, device=cuda)
+    if "kv_len" in kw:
+        mask = mask & (kpos[None, :] < kw["kv_len"][:, None])[:, None, None, :]
+    if kw["causal"]:
+        mask = mask & (qpos[:, None] + (sk - sq) >= kpos[None, :])
+    s = s.masked_fill(~mask, -torch.inf)
+    seen = (s.amax(-1) > 0.5 * ref.NEG)
+    exp = torch.logsumexp(s, dim=-1)
+    assert torch.all(torch.isinf(lse[~seen]) & (lse[~seen] > 0))
+    torch.testing.assert_close(lse[seen], exp[seen], rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.gpu

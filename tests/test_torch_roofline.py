@@ -189,8 +189,9 @@ def test_flash_backward_is_counted_as_the_card_runs_it():
         out = ops.flash_attention(q, k, v)
         out.sum().backward()
     assert c.kernels["flash_attention"] == 1
-    # the explicit backward's five products at 2*D a pair each
+    # the backward's five products at 2*D a pair each
     assert c.flops - 4 * 2 * 16 * 36 == 5 * 2 * 1 * 2 * 36 * 16
+    assert c.kernels["flash_attention_bwd"] == 1
 
 
 def test_hloprof_report_and_flags():
