@@ -12,14 +12,18 @@ each failing the run on any failed check:
 2. build:   nvcc builds every kernel library from ``src/repro_torch/kernels/csrc``
             and prints each kernel's ptxas registers, spills and shared memory;
             the tensor-core kernels and tome_scores must not spill (the
-            tensor-core flash backward not at D=64: its D=128 spill and the
-            CUDA-core backward's are printed);
+            tensor-core flash backward not at D=64: its D=128 spill is
+            printed), nor the 3xTF32 flash kernels at D <= 64, whose dynamic
+            shared memory and blocks per SM are printed for each
+            instantiation;
 3. kernels: each kernel against its plain PyTorch version on the card at the
             main paths' shapes, and timed beside its plain version, one
             library call computing the same function, and its bound. Flash
             attention has two kernels, chosen by (dtype, head dim): the
-            tensor-core one (bf16 at D 64 and 128) and the CUDA-core one (f32,
-            and bf16 at D 16 and 32); both are timed at ViT B=1, ViT B=8 and
+            tensor-core one (bf16 at D 64 and 128) and the route still named
+            CUDA-core (f32, and bf16 at D 16 and 32; 3xTF32 on the tensor
+            cores, and at its f32 ViT and vision calls a 1xTF32 forward must
+            read above the f32 limit); both are timed at ViT B=1, ViT B=8 and
             the LM prefill shape, the CUDA-core one also in bf16 beside the
             tensor-core one; the tensor-core one also at the two MoE prefills
             (qwen3 [8,32,1024,128], granite [8,24,1024,64], causal) and at
@@ -142,8 +146,8 @@ each failing the run on any failed check:
             one profiled step (idle share, the flash backward's share); one
             bf16 step's gradients with the kernels against the plain versions
             (loss, gradient norm, cosine, least leaf cosine) and an f32 step
-            of vit-l16 cut to 4 layers at B=4 (every gradient leaf), each
-            also run with the wrong backwards (and bf16 with a wrong
+            of vit-l16 cut to 4 layers at B=4 (every gradient leaf, at three
+            seeds), each also run with the wrong backwards (and bf16 with a wrong
             forward), which must break a limit.
 16. train mesh: the same run (seed, 4 steps, checkpoint at 2, ``--resume``
             for 2) through ``launch.train.main([... "--mesh"])`` on the (1,1)
@@ -192,7 +196,8 @@ try:  # the timing helpers, peaks and kernel tolerances are the package's
                                                      FLASH_BF16_REL, FLASH_BWD_BF16_OF_MAX,
                                                      FLASH_BWD_F32_OF_MAX, FLASH_F32, TOME_MAX,
                                                      Case, flash_close, tome_close)
-    from repro_torch.benchmarks.timing import PEAK_BF16, PEAK_F32, bound, time_cold_ms, time_ms
+    from repro_torch.benchmarks.timing import (PEAK_BF16, PEAK_F32, PEAK_TF32, bound,
+                                                time_cold_ms, time_ms)
 except ModuleNotFoundError:
     sys.exit(f"chip_smoke: no src/repro_torch beside {__file__}; run it from a checkout")
 
@@ -267,7 +272,8 @@ def main() -> int:
                                             for line in lines),
               f"{name} spills (or ptxas printed another number of lines for it)")
     # the backward kernels: two passes each; the tensor-core one must not
-    # spill at D=64 (its spill at D=128, and the CUDA-core one's, are printed)
+    # spill at D=64 (its spill at D=128 is printed; the 3xTF32 one's check is
+    # flash_tf32_occupancy's)
     for name, n_lines in (("flash_attention_mma_bwd", 4), ("flash_attention_bwd", 16)):
         lines = ptxas_summary(_build.build_log(name))
         check(len(lines) == n_lines, f"ptxas printed {len(lines)} lines for {name}")
@@ -276,6 +282,7 @@ def main() -> int:
               + (": " + "; ".join(line.split(":")[0] for line in spills) if spills else ""))
         if name == "flash_attention_mma_bwd":
             check(not any("<64>" in line for line in spills), f"{name} spills at D=64")
+    flash_tf32_occupancy()
 
     from repro_torch.runtime.device import parity_numerics
     parity_numerics()  # f32 plain versions and f32 phases must not use TF32
@@ -333,6 +340,33 @@ def main() -> int:
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0
+
+
+def flash_tf32_occupancy() -> None:
+    """The 3xTF32 flash kernels (forward, and the backward's dQ and dK/dV
+    passes): each instantiation's ptxas line (``ptxas_summary``), its dynamic
+    shared memory and the blocks of it an SM holds at once, from its
+    library's occupancy entry (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``);
+    none may spill at D <= 64."""
+    import ctypes
+    from repro_torch.kernels import _build
+    for name, entry, n_lines in (("flash_attention", "flash_attention_fwd_occupancy", 8),
+                                 ("flash_attention_bwd", "flash_attention_bwd_occupancy", 16)):
+        occupancy = getattr(_build.load(name), entry)
+        lines = ptxas_summary(_build.build_log(name))
+        check(len(lines) == n_lines, f"ptxas printed {len(lines)} lines for {name}")
+        for line in lines:
+            kernel, dtype, d = re.match(r"(\w+)<(f32|bf16),(\d+)>", line).groups()
+            args = [int(d), int(dtype == "bf16")]
+            if name == "flash_attention_bwd":
+                args.append(int(kernel == "flash_bwd_dkdv_kernel"))
+            smem, blocks = ctypes.c_int(), ctypes.c_int()
+            err = occupancy(*args, ctypes.byref(smem), ctypes.byref(blocks))
+            check(err == 0, f"{entry}{tuple(args)}: cudaError {err}")
+            print(f"[build] {name}: {kernel}<{dtype},{d}> {smem.value} B dynamic shared memory, "
+                  f"{blocks.value} blocks/SM")
+            check(int(d) > 64 or " 0 B spill stores, 0 B spill loads" in line,
+                  f"{name} spills: {line}")
 
 
 def ptxas_summary(log: str) -> list[str]:
@@ -500,6 +534,24 @@ def kernel_phase(torch, bench: list[dict]) -> list[dict]:
         check(min(rel.values()) > FLASH_BF16_REL,
               f"the bf16 flash limit does not reject a wrong kernel at {label}")
 
+    def wrong_tf32_reading(label, q, k, v, kw, exp):
+        """What a 1xTF32 forward (the plain version with TF32 matmuls) would
+        read at this f32 call: the f32 limit, which the 3xTF32 kernel meets,
+        must reject it."""
+        from repro_torch.runtime.device import parity_numerics
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            wrong = ref.flash_attention_ref(q, k, v, **kw)
+        finally:
+            parity_numerics()
+        err = (wrong - exp).abs().max().item()
+        over = ((wrong - exp).abs() / (FLASH_F32["atol"] + FLASH_F32["rtol"] * exp.abs())).max()
+        print(f"[kernels] flash_attention {label}: a wrong kernel would read 1xTF32 (the plain "
+              f"version with TF32 matmuls) max_abs_err {err:.3e}, {over.item():.2f} x the f32 "
+              f"limit {FLASH_F32}")
+        check(not torch.allclose(wrong, exp, **FLASH_F32),
+              f"the f32 flash limit does not reject a 1xTF32 forward at {label}")
+
     def flash_case(label, b, dtype, sq=s, sk=s, pads=0, kv=False, causal=False, h=h, d=d,
                    with_bias=True, wrong=False):
         q, k, v, bias = flash_inputs(b, dtype, sq, sk, pads, h, d)
@@ -531,12 +583,14 @@ def kernel_phase(torch, bench: list[dict]) -> list[dict]:
               f"{str(dtype)[6:]} max_abs_err={err:.3e} ({err / scale:.3e} of max|plain| "
               f"{scale:.3e}) tol={tol}{limit} {'ok' if ok else 'FAIL'}")
         check(ok, f"flash_attention {label} disagrees with its plain version")
-        if wrong:
+        if wrong and dtype == torch.float32:
+            wrong_tf32_reading(label, q, k, v, kw, exp)
+        elif wrong:
             wrong_readings(label, q, k, v, kw, exp, scale)
 
     for b in (1, 8):
         for dtype in (torch.bfloat16, torch.float32):
-            flash_case("prop-attn bias", b, dtype)
+            flash_case("prop-attn bias", b, dtype, wrong=dtype == torch.float32)
     flash_case("bucket pads (-inf bias)", 8, torch.bfloat16, sq=592, sk=592, pads=15)
     for dtype in (torch.bfloat16, torch.float32):
         flash_case("kv_len, one member 0", 8, dtype, kv=True)
@@ -552,7 +606,8 @@ def kernel_phase(torch, bench: list[dict]) -> list[dict]:
         flash_case(label, b, torch.bfloat16, sq=ss, sk=ss, h=hh, d=dd, with_bias=with_bias,
                    wrong=True)
     for label, b, hh, ss, dd, with_bias in VISION_FLASH:
-        flash_case(label, b, torch.float32, sq=ss, sk=ss, h=hh, d=dd, with_bias=with_bias)
+        flash_case(label, b, torch.float32, sq=ss, sk=ss, h=hh, d=dd, with_bias=with_bias,
+                   wrong=True)
     for label, hh, dd in MOE_PREFILL:
         flash_case(label, 8, torch.bfloat16, sq=1024, sk=1024, causal=True, h=hh, d=dd,
                    with_bias=False)
@@ -599,6 +654,9 @@ def kernel_phase(torch, bench: list[dict]) -> list[dict]:
                 row["cuda_core_ms"] = time_ms(lambda: cuda_core_flash(
                     torch, flash_mod, q, k, v, bias, causal), 10)
                 extra = f", CUDA-core kernel {row['cuda_core_ms']:.4f} ms"
+            else:  # 3xTF32: three TF32 passes on the tensor cores
+                t_ms, t_by = bound(3 * case.flops(), case.nbytes(), PEAK_TF32)
+                extra = f"; 3xTF32 bound {t_ms:.4f} ms ({t_by})"
             print(f"[kernels] {kernel} {row['shape']} timing ({timing}): kernel {ms:.4f} ms, plain "
                   f"{plain:.4f} ms, sdpa {lib:.4f} ms ({ms / lib:.2f}x), bound {b_ms:.4f} ms "
                   f"({b_by}){extra}")
@@ -2843,7 +2901,9 @@ def flash_backward_phase(torch, bench: list[dict]) -> tuple[dict[str, float], li
         print(f"[train] flash backward {shape} timing (kernel_bench {shared['label']}, queued): "
               f"{name} {ms:.4f} ms a call; plain backward {plain_ms:.4f} ms; SDPA backward "
               f"{lib_ms:.4f} ms ({ms / lib_ms:.2f}x); bound {b_ms:.4f} ms ({b_by}, "
-              f"{case.flops():.4e} FLOP, {case.nbytes():.4e} B; kernel at {b_ms / ms:.3f} of it)")
+              f"{case.flops():.4e} FLOP, {case.nbytes():.4e} B; kernel at {b_ms / ms:.3f} of it)"
+              + ("" if mma else "; 3xTF32 bound {:.4f} ms ({})".format(
+                  *bound(3 * case.flops(), case.nbytes(), PEAK_TF32))))
         ms_by_label[label] = ms
         timings[name].append(dict(shape=shape, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                                   bound_ms=b_ms, bound_by=b_by,
@@ -2929,15 +2989,15 @@ def f32_step_broken(r: dict) -> list[str]:
 def train_parity_phase(torch, params, opt, batch, bundle) -> tuple[dict, dict]:
     """One bf16 step's gradients (both microbatches, before the update) from
     the trained params, through the kernels and under ``ops.plain_versions``;
-    then vit-l16 cut to 4 layers at B=4 in f32, every gradient leaf. Each
-    also runs with plainly wrong flash backwards (and the bf16 step with a
-    wrong forward), which must break its limits. Returns the kernel runs'
-    launches."""
+    then vit-l16 cut to 4 layers at B=4 in f32, every gradient leaf, at
+    three seeds (``f32_train_parity``). Each also runs with plainly wrong
+    flash backwards (and the bf16 step with a wrong forward), which must
+    break its limits. Returns the kernel runs' launches."""
     from repro_torch import configs
     from repro_torch.kernels import flash_attention as flash_mod
     from repro_torch.kernels import ops, ref
     from repro_torch.launch import steps
-    from repro_torch.models import param, vit
+    from repro_torch.models import param
 
     def wrong():
         """(name, context) of each wrong backward."""
@@ -2986,33 +3046,65 @@ def train_parity_phase(torch, params, opt, batch, bundle) -> tuple[dict, dict]:
     del grads_p
     torch.cuda.empty_cache()
 
+    return counts16, f32_train_parity(torch, cfg, wrong)
+
+
+# (weights, data) seeds of the f32 train parity's runs; the wrong-backward
+# controls run on the first
+F32_PARITY_SEEDS = ((40, 41), (42, 43), (44, 45))
+
+
+def f32_train_parity(torch, cfg, wrong) -> dict:
+    """vit ``cfg`` cut to 4 layers at B=4 in f32: one step's gradients
+    through the kernels against the plain versions, every leaf within
+    ``GRAD_F32``, at each of ``F32_PARITY_SEEDS`` (the counters zeroed before
+    each kernel run and read after it); then the wrong backwards of
+    ``wrong()`` on the first seed's inputs, which must break a limit.
+    Returns the first kernel run's launches."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps
+    from repro_torch.models import param, vit
+
     cfg = dataclasses.replace(cfg, n_layers=4, dtype=torch.float32)
-    p32 = param.init_params(vit.specs(cfg), torch.Generator(device="cuda").manual_seed(40),
-                            "cuda")
-    gen = torch.Generator(device="cuda").manual_seed(41)
-    images = torch.randn((4, cfg.img_res, cfg.img_res, 3), generator=gen, device="cuda")
-    labels = torch.randint(0, cfg.n_classes, (4,), generator=gen, device="cuda",
-                           dtype=torch.int32)
+    exp32 = _expect(flash_attention=2 * cfg.n_layers, flash_attention_bwd=cfg.n_layers)
 
     def loss_fn(p, b):
         return steps._ce_loss(vit.forward(p, cfg, b["images"]), b["labels"])
 
-    b32 = {"images": images, "labels": labels}
-    zero_counts()
-    l_k, g_k = steps.value_and_grad(loss_fn, p32, b32)
-    torch.cuda.synchronize()
-    counts32 = read_counts()
-    with ops.plain_versions():
-        l_p, g_p = steps.value_and_grad(loss_fn, p32, b32)
-    r = f32_step_readings(param, l_k, g_k, l_p, g_p)
-    broken = f32_step_broken(r)
-    exp32 = _expect(flash_attention=2 * cfg.n_layers, flash_attention_bwd=cfg.n_layers)
-    print(f"[train parity] {TRAIN_ARCH} f32 cut to {cfg.n_layers} layers, B=4 at "
-          f"{cfg.img_res} px: loss {float(l_k):.7f} vs {float(l_p):.7f}; {r['n']} gradient "
-          f"leaves ({r['n_real']} above rounding), worst {r['of_leaf']:.3e} of its max|g| "
-          f"({r['worst_leaf']}), {r['of_max']:.3e} of the largest (tol {GRAD_F32}); launches "
-          f"{_nz(counts32)} (implies {_nz(exp32)}) {'FAIL ' + str(broken) if broken else 'ok'}")
-    check(not broken and counts32 == exp32, "f32 train step: kernels vs plain versions")
+    first, readings = None, []
+    for w_seed, d_seed in F32_PARITY_SEEDS:
+        p32 = param.init_params(vit.specs(cfg), torch.Generator(device="cuda")
+                                .manual_seed(w_seed), "cuda")
+        gen = torch.Generator(device="cuda").manual_seed(d_seed)
+        b32 = {"images": torch.randn((4, cfg.img_res, cfg.img_res, 3), generator=gen,
+                                     device="cuda"),
+               "labels": torch.randint(0, cfg.n_classes, (4,), generator=gen, device="cuda",
+                                       dtype=torch.int32)}
+        zero_counts()
+        l_k, g_k = steps.value_and_grad(loss_fn, p32, b32)
+        torch.cuda.synchronize()
+        counts32 = read_counts()
+        with ops.plain_versions():
+            l_p, g_p = steps.value_and_grad(loss_fn, p32, b32)
+        r = f32_step_readings(param, l_k, g_k, l_p, g_p)
+        readings.append(r)
+        broken = f32_step_broken(r)
+        print(f"[train parity] {TRAIN_ARCH} f32 cut to {cfg.n_layers} layers, B=4 at "
+              f"{cfg.img_res} px, seeds {w_seed}/{d_seed}: loss {float(l_k):.7f} vs "
+              f"{float(l_p):.7f}; {r['n']} gradient leaves ({r['n_real']} above rounding), "
+              f"worst {r['of_leaf']:.3e} of its max|g| ({r['worst_leaf']}), {r['of_max']:.3e} "
+              f"of the largest (tol {GRAD_F32}); launches {_nz(counts32)} (implies "
+              f"{_nz(exp32)}) {'FAIL ' + str(broken) if broken else 'ok'}")
+        check(not broken and counts32 == exp32, "f32 train step: kernels vs plain versions")
+        if first is None:
+            first = counts32, p32, b32, g_p, l_p
+        del g_k
+    worst = max(readings, key=lambda r: r["of_leaf"] / GRAD_F32["of_leaf"])
+    print(f"[train parity] f32 over {len(readings)} seeds: worst leaf "
+          f"{worst['of_leaf']:.3e} of its max|g| ({worst['worst_leaf']}), "
+          f"{worst['of_leaf'] / GRAD_F32['of_leaf']:.3f} of the limit; largest of_max "
+          f"{max(r['of_max'] for r in readings):.3e}")
+    counts32, p32, b32, g_p, l_p = first
     for name, ctx in wrong():
         with ctx:
             l_w, g_w = steps.value_and_grad(loss_fn, p32, b32)
@@ -3021,7 +3113,7 @@ def train_parity_phase(torch, params, opt, batch, bundle) -> tuple[dict, dict]:
         print(f"[train parity] f32 control, a {name}: worst {w['of_leaf']:.3e} of its max|g| "
               f"({w['worst_leaf']}), {w['of_max']:.3e} of the largest: breaks {broken}")
         check(bool(broken), f"the f32 train parity's limits do not reject a {name}")
-    return counts16, counts32
+    return counts32
 
 
 def profile_train_step(torch, bundle, params, opt, batch, calls_per_step: int,

@@ -9,9 +9,10 @@ from __future__ import annotations
 import torch
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, f32 outside
-# the tensor cores, HBM3 bandwidth.
+# the tensor cores, TF32 tensor cores, HBM3 bandwidth.
 PEAK_BF16 = 989e12
 PEAK_F32 = 67e12
+PEAK_TF32 = 495e12
 PEAK_BYTES = 3.35e12
 
 

@@ -6,8 +6,9 @@ head dim), ``kernel_for``:
 
 - ``csrc/flash_attention_mma.cu``: bf16 tensor cores (``mma.sync``), bf16 at
   D 64 and 128 (the ViT blocks and the LM prefill);
-- ``csrc/flash_attention.cu``: CUDA-core f32 math, f32 at every head dim and
-  bf16 at D 16 and 32. f32 stays off the tensor cores, where it would be TF32.
+- ``csrc/flash_attention.cu``: 3xTF32 tensor cores (``mma.sync`` m16n8k8,
+  each f32 operand split into two TF32 terms, which keeps f32 accuracy), f32
+  at every head dim and bf16 at D 16 and 32.
 
 A CPU tensor goes to the plain version in ``ref.py``; a CUDA tensor launches
 a kernel or raises, never falls back. ``launches`` counts launches of both
@@ -19,7 +20,7 @@ forward is the same kernel (which then also writes each row's log-sum-exp)
 and whose backward is ``backward``, a dispatcher like the forward's: on a
 CUDA tensor the backward kernel of the forward's route,
 ``csrc/flash_attention_mma_bwd.cu`` (tensor cores, bf16 at D 64/128) or
-``csrc/flash_attention_bwd.cu`` (CUDA-core f32 math, the rest); on a CPU
+``csrc/flash_attention_bwd.cu`` (3xTF32 tensor cores, the rest); on a CPU
 tensor the plain ``ref.flash_attention_bwd_ref``. ``launches_bwd`` counts
 backward calls on both kernels (each call is two launches: the dQ pass,
 then the dK/dV pass), ``launches_bwd_mma`` those on the tensor-core one.
@@ -74,8 +75,8 @@ def kernel_for(dtype: torch.dtype, d: int) -> str:
 @functools.cache
 def _fn(name: str):
     """The C entry ``<name>_fwd``: q, k, v, bias, kv_len, out, lse, then B, H,
-    Sq, Sk, D, the dtype code (the CUDA-core kernel only; the tensor-core one
-    is bf16 only), causal and the stream."""
+    Sq, Sk, D, the dtype code (the ``CUDA_CORE`` route's kernel only; the bf16
+    tensor-core one is bf16 only), causal and the stream."""
     fn = getattr(_build.load(name), f"{name}_fwd")
     n_ints = 7 if name == CUDA_CORE else 6
     fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * n_ints + [ctypes.c_void_p]
@@ -88,7 +89,7 @@ def _bwd_fn(name: str):
     """The C entry of backward kernel ``name`` (``BWD``'s values): q, k, v,
     out, dout, lse, bias, kv_len, dq, dk, dv, the per-head dbias sums, the
     rowsum(dO * O) scratch, then B, H, Sq, Sk, D, the dtype code (the
-    CUDA-core kernel only), causal and the stream."""
+    ``CUDA_CORE`` route's kernel only), causal and the stream."""
     fn = getattr(_build.load(name), name)
     n_ints = 7 if name == BWD[CUDA_CORE] else 6
     fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * n_ints + [ctypes.c_void_p]
@@ -227,8 +228,8 @@ def _checked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError(f"flash_attention: operand on {t.device}, q on {q.device}")
         if not t.is_contiguous():
             raise ValueError("flash_attention: operands must be contiguous")
-    if kernel == MMA and any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError("flash_attention: bf16 q/k/v must start on a 16-byte boundary")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):  # both kernels copy 16-byte pieces
+        raise ValueError("flash_attention: q/k/v must start on a 16-byte boundary")
     return kernel
 
 

@@ -19,9 +19,11 @@ its group size n:
 
 Hardware constants, NVIDIA H100 SXM5 80GB (data sheet, dense):
 989 TFLOP/s bf16/fp16 on the tensor cores, 67 TFLOP/s f32 outside them (the
-port keeps f32 off the tensor cores, where it would be TF32), 3.35 TB/s of
-HBM3. Links: NVLink 4 with NVSwitch inside an 8-GPU HGX node, 450 GB/s a
-direction per GPU; between nodes 8 x 400 Gb/s NICs a node, 50 GB/s a GPU.
+port's f32 flash kernels run on the tensor cores in 3xTF32, three TF32
+products at 495 TFLOP/s for each f32 one; an f32 count is still charged at
+the f32 peak), 3.35 TB/s of HBM3. Links: NVLink 4 with NVSwitch inside an
+8-GPU HGX node, 450 GB/s a direction per GPU; between nodes 8 x 400 Gb/s
+NICs a node, 50 GB/s a GPU.
 
 The collective term is per mesh axis. Ranks are laid out row-major on the
 mesh (``init_device_mesh``), "model" innermost, 8 GPUs a node: a group

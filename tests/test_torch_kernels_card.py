@@ -471,8 +471,10 @@ def test_flash_backward_kernel_matches_plain_backward_on_card(cuda, d, mode, dty
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("d,dtype", [(64, torch.bfloat16), (128, torch.bfloat16),
-                                     (32, torch.bfloat16), (64, torch.float32)],
-                         ids=["mma-64", "mma-128", "cuda-core-bf16-32", "cuda-core-f32-64"])
+                                     (32, torch.bfloat16), (64, torch.float32),
+                                     (128, torch.float32)],
+                         ids=["mma-64", "mma-128", "cuda-core-bf16-32", "cuda-core-f32-64",
+                              "cuda-core-f32-128"])
 def test_flash_backward_kernels_are_deterministic_on_card(cuda, d, dtype):
     """No atomics: two runs of the backward give the same bits."""
     q, k, v, dout, kw = _bwd_case(cuda, d, "bias+kv_len+causal", dtype, seed=24)
@@ -536,6 +538,105 @@ def test_flash_backward_gqa_repeated_outside_on_card(cuda, dtype):
     tol = 1e-4 if dtype == torch.float32 else BWD_BF16_OF_MAX
     for g, e in zip(got, exp):
         torch.testing.assert_close(g.float(), e, rtol=0, atol=tol * float(e.abs().max()))
+
+
+# (Sq, Sk) at the 3xTF32 kernels' tile edges (16-row warps, 64-row blocks,
+# key tiles of 64 or 32): each of 1, 15, 16, 17, 63, 64, 65 and 577 as Sq and
+# as Sk, Sq < Sk and Sq > Sk
+TF32_EDGES = ((1, 577), (577, 1), (15, 17), (17, 15), (16, 16), (63, 65), (65, 63), (64, 64))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sq,sk", TF32_EDGES, ids=[f"{a}x{b}" for a, b in TF32_EDGES])
+@pytest.mark.parametrize("dtype,d", [(torch.float32, 16), (torch.float32, 32),
+                                     (torch.float32, 64), (torch.float32, 128),
+                                     (torch.bfloat16, 16), (torch.bfloat16, 32)],
+                         ids=["f32-16", "f32-32", "f32-64", "f32-128", "bf16-16", "bf16-32"])
+def test_flash_tf32_kernels_at_tile_edges_on_card(cuda, dtype, d, sq, sk):
+    """The 3xTF32 forward and backward (the ``CUDA_CORE`` route) at tile-edge
+    lengths, plain, with the bias (-inf pads), causal, with a kv_len that
+    splits a key tile, and all three: the forward against the plain version
+    at the flash limits, the backward kernel against the plain backward on
+    the same inputs at 1e-4 (f32) or BWD_BF16_OF_MAX (bf16) of max|g|. With
+    one key (Sk = 1) the softmax is constant, so dQ, dK and dbias are 0 up to
+    rounding: their limit is taken of max|dV| there."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen, q, k, v, bias = _flash_case(cuda, 2, 2, sq, sk, d, dtype, seed=sq + 3 * sk + d)
+    kv_len = torch.tensor([max(1, sk - 5), (sk + 1) // 2], dtype=torch.int32, device=cuda)
+    dout = torch.randn((2, 2, sq, d), generator=gen, device=cuda).to(dtype)
+    tol = 1e-4 if dtype == torch.float32 else BWD_BF16_OF_MAX
+    for kw in ({}, {"bias": bias}, {"causal": True}, {"kv_len": kv_len},
+               {"bias": bias, "kv_len": kv_len, "causal": True}):
+        assert flash_mod.kernel_for(dtype, d) == flash_mod.CUDA_CORE
+        _check_flash(q, k, v, **kw)
+        kw = {"causal": False, **kw}
+        out, got = _kernel_backward(q, k, v, dout, kw)
+        exp = ref.flash_attention_bwd_ref(q, k, v, out, dout, need_bias="bias" in kw, **kw)
+        dv_scale = float(exp[2].float().abs().max())
+        for name, g, e in zip(("dq", "dk", "dv", "dbias"), got, exp):
+            if e is None:
+                assert g is None, name
+                continue
+            assert g.shape == e.shape and torch.isfinite(g).all(), (name, kw)
+            scale = dv_scale if sk == 1 and name != "dv" else float(e.float().abs().max())
+            torch.testing.assert_close(g.float(), e.float(), rtol=0, atol=tol * scale,
+                                       msg=lambda m, name=name: f"{name} {sorted(kw)}: {m}")
+
+
+@pytest.mark.gpu
+def test_flash_tf32_route_refuses_misaligned_operands_on_card(cuda):
+    """Both flash routes copy rows in 16-byte pieces and refuse a q, k or v
+    that does not start on a 16-byte boundary, forward and backward, as the
+    bf16 tensor-core route always has; the gradient autograd hands over may
+    be a strided or offset view, which the backward copies, with the results
+    of an aligned one."""
+    flat = torch.randn(3 * 2 * 3 * 70 * 32 + 2, device=cuda)
+    q, k, v = (flat[1 + i * 13440:1 + (i + 1) * 13440].view(2, 3, 70, 32) for i in range(3))
+    assert q.is_contiguous() and q.data_ptr() % 16 == 4
+    assert flash_mod.kernel_for(q.dtype, 32) == flash_mod.CUDA_CORE
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_mod.flash_attention(q, k, v, causal=True)
+    qa, ka, va = (t.clone() for t in (q, k, v))
+    out, lse = flash_mod._forward(qa, ka, va, None, None, True, True)
+    dout = flat[2:13442].view(2, 3, 70, 32)
+    assert dout.data_ptr() % 16 == 8
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_mod.backward(q, ka, va, out, dout, causal=True, lse=lse)
+    got = flash_mod.backward(qa, ka, va, out, dout, causal=True, lse=lse)
+    aligned = flash_mod.backward(qa, ka, va, out, dout.clone(), causal=True, lse=lse)
+    for g, a in zip(got[:3], aligned[:3]):
+        assert torch.equal(g, a)
+
+
+@pytest.mark.gpu
+def test_flash_f32_limits_reject_a_tf32_plain_version_on_card(cuda):
+    """The f32 limits that the 3xTF32 kernels meet reject plain TF32: at the
+    reference's [1, 16, 577, 64] f32 call with the bias, the forward kernel
+    is within atol 2e-5 / rtol 1e-4 of the plain version and the plain
+    version with TF32 matmuls (``torch.backends.cuda.matmul.allow_tf32``) is
+    not; the backward kernel at [2, 16, 577, 64] is within 1e-4 of max|g| of
+    the plain backward and the plain backward with TF32 matmuls is not."""
+    from repro_torch.runtime.device import parity_numerics
+
+    parity_numerics()
+    gen, q, k, v, bias = _flash_case(cuda, 1, 16, 577, 577, 64, torch.float32, seed=31)
+    _check_flash(q, k, v, bias=bias)
+    exp = ref.flash_attention_ref(q, k, v, bias=bias)
+    q2, k2, v2, dout, kw = _bwd_case(cuda, 64, "bias", torch.float32, seed=32)
+    out, got = _kernel_backward(q2, k2, v2, dout, kw)
+    exp_g = ref.flash_attention_bwd_ref(q2, k2, v2, out, dout, need_bias=True, **kw)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf32 = ref.flash_attention_ref(q, k, v, bias=bias)
+        tf32_g = ref.flash_attention_bwd_ref(q2, k2, v2, out, dout, need_bias=True, **kw)
+        torch.cuda.synchronize()
+    finally:
+        parity_numerics()
+    assert not torch.allclose(tf32, exp, atol=ATOL, rtol=RTOL)
+    of_max = [float((g - e).abs().max() / e.abs().max()) for g, e in zip(got[:3], exp_g[:3])]
+    tf32_of_max = [float((g - e).abs().max() / e.abs().max())
+                   for g, e in zip(tf32_g[:3], exp_g[:3])]
+    assert max(of_max) <= 1e-4 < max(tf32_of_max), (of_max, tf32_of_max)
 
 
 @pytest.mark.gpu
