@@ -272,7 +272,7 @@ def main() -> int:
                                             for line in lines),
               f"{name} spills (or ptxas printed another number of lines for it)")
     # the backward kernels: two passes each; the tensor-core one must not
-    # spill at D=64 (its spill at D=128 is printed; the 3xTF32 one's check is
+    # spill at any D (flash_mma_bwd_occupancy; the 3xTF32 one's check is
     # flash_tf32_occupancy's)
     for name, n_lines in (("flash_attention_mma_bwd", 4), ("flash_attention_bwd", 16)):
         lines = ptxas_summary(_build.build_log(name))
@@ -280,8 +280,7 @@ def main() -> int:
         spills = [line for line in lines if " 0 B spill stores, 0 B spill loads" not in line]
         print(f"[build] {name}: {len(spills)} of {n_lines} instantiations spill"
               + (": " + "; ".join(line.split(":")[0] for line in spills) if spills else ""))
-        if name == "flash_attention_mma_bwd":
-            check(not any("<64>" in line for line in spills), f"{name} spills at D=64")
+    flash_mma_bwd_occupancy()
     flash_tf32_occupancy()
 
     from repro_torch.runtime.device import parity_numerics
@@ -340,6 +339,38 @@ def main() -> int:
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0
+
+
+def flash_mma_bwd_occupancy() -> None:
+    """The tensor-core flash backward (``flash_attention_mma_bwd``, wgmma and
+    TMA): each pass's ptxas line at D 64 and 128 (``ptxas_summary``), its
+    dynamic shared memory and the blocks of it an SM holds at once, from the
+    library's occupancy entry (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``),
+    and the host's time to encode one call's tensor maps at the two train
+    calls of kernel_bench; no instantiation may spill."""
+    import ctypes
+    from repro_torch.kernels import _build
+    lib = _build.load("flash_attention_mma_bwd")
+    lines = ptxas_summary(_build.build_log("flash_attention_mma_bwd"))
+    check(len(lines) == 4, f"ptxas printed {len(lines)} lines for flash_attention_mma_bwd")
+    for line in lines:
+        kernel, d = re.match(r"(\w+)<(\d+)>", line).groups()
+        smem, blocks = ctypes.c_int(), ctypes.c_int()
+        err = lib.flash_attention_mma_bwd_occupancy(int(d), int(kernel.endswith("dkdv_kernel")),
+                                                    ctypes.byref(smem), ctypes.byref(blocks))
+        check(err == 0, f"flash_attention_mma_bwd_occupancy({d}): cudaError {err}")
+        print(f"[build] flash_attention_mma_bwd: {kernel}<{d}> {smem.value} B dynamic shared "
+              f"memory, {blocks.value} blocks/SM")
+        check(" 0 B spill stores, 0 B spill loads" in line,
+              f"flash_attention_mma_bwd spills: {line}")
+    lib.flash_attention_mma_bwd_encode_ns.argtypes = [ctypes.c_int] * 6 + [
+        ctypes.POINTER(ctypes.c_double)]
+    for b, h, s, d in ((32, 16, 577, 64), (2, 24, 1024, 128)):
+        ns = ctypes.c_double()
+        err = lib.flash_attention_mma_bwd_encode_ns(b, h, s, s, d, 1000, ctypes.byref(ns))
+        check(err == 0, f"flash_attention_mma_bwd_encode_ns: error {err}")
+        print(f"[build] flash_attention_mma_bwd: tensor maps of a call at [{b},{h},{s},{d}] "
+              f"encoded in {ns.value / 1e3:.2f} us on the host")
 
 
 def flash_tf32_occupancy() -> None:

@@ -18,9 +18,9 @@ call), flash [1,16,577,64], decode [8,24,128] over a full [8,4096,2,128]
 cache. Part 2: the paths' bf16 calls: flash_attention_mma at ViT B=8 with
 the ToMe bias and at starcoder2's causal prefill [8,24,1024,128], and
 decode_attention_mma at starcoder2's last decode step. Part 3: the flash
-backward (``flash_bwd``) at the train calls: flash_attention_mma_bwd at
-vit-l16 ``cls_384`` [32,16,577,64] and an LM train shape [2,24,1024,128]
-causal, flash_attention_bwd at the f32 train parity's [4,16,577,64] and
+backward (``flash_bwd``) at the train calls: flash_attention_mma_bwd (wgmma
+and TMA since slice 15) at vit-l16 ``cls_384`` [32,16,577,64] and an LM
+train shape [2,24,1024,128] causal, flash_attention_bwd at the f32 train parity's [4,16,577,64] and
 at D=16 [8,4,577,16]; the plain version is ``ref.flash_attention_bwd_ref``,
 the library call SDPA's backward alone (``autograd.grad`` of a retained
 graph).

@@ -7,7 +7,7 @@
 // flash_attention's port on the tensor cores), for every bf16 call at those
 // head dims: each training step of vit-l16 cls_384 (D=64), the LM train
 // shapes (D=128, causal), dit and flux. f32 and D in {16, 32} go to
-// csrc/flash_attention_bwd.cu (CUDA-core f32 math).
+// csrc/flash_attention_bwd.cu (3xTF32 tensor cores).
 //
 // Semantics (those of ref.flash_attention_bwd_ref): q, k, v, out, dout
 // [B, H, S, D] contiguous bf16, each 16-byte aligned; lse [B, H, Sq] f32, the
@@ -18,116 +18,407 @@
 //   dP = dO.V^T in f32, dS = P * (dP - D_i),
 //   dV = P^T.dO, dQ = dS.K / sqrt(D), dK = dS^T.Q / sqrt(D).
 // Rounding points are the plain version's: S and dP are f32 sums of exact
-// bf16 products (mma.sync bf16 -> f32); P and dS are rounded to bf16 (nearest
+// bf16 products (wgmma bf16 -> f32); P and dS are rounded to bf16 (nearest
 // even) as the A operands of the products that give dV, dQ and dK; the
-// gradients are f32 in registers and rounded once. Exponentials are exp2f of
-// log2-unit scores (scale, bias and lse times log2 e). dbias_part (nullable,
-// [B, H, Sk] f32) gets each key's sum over queries of the unrounded f32 dS;
-// the wrapper sums it over H. A key no query sees (past min(Sk, kv_len))
-// gets dK = dV = 0, written; so does a whole key tile past it.
+// gradients are f32 in registers and rounded once. Exponentials are
+// ex2.approx.ftz of log2-unit scores (scale, bias and lse times log2 e).
+// dbias_part (nullable, [B, H, Sk] f32) gets each key's sum over queries of
+// the unrounded f32 dS; the wrapper sums it over H. A key no query sees (past
+// min(Sk, kv_len)) gets dK = dV = 0, written; so does a whole key block past
+// it.
 //
 // What bounds it on the H100: five products of 2*D FLOPs a (query, key)
 // pair. At the vit-l16 train call [32, 16, 577, 64] that is 109 GFLOP (110
 // us at the 989 TFLOP/s bf16 tensor-core peak) over 304 MB (q, k, v, out,
 // dout and the f32 lse read, dq, dk, dv written; 91 us at 3.35 TB/s):
-// operations bound it. This design does seven products (S and dP are
-// recomputed in the dQ pass) on mma.sync, which does not reach the wgmma
-// peak.
+// operations bound it, so the design is about feeding the tensor cores.
+//   - Operands: mma.sync fragments that every warp loaded with ldmatrix held
+//     the tensor cores near 0.42 of peak (128 B a clock an SM). Every product
+//     here is a wgmma (m64nNk16, bf16 in, f32 sums), B read by the warpgroup
+//     from shared memory; P and dS enter the dV, dQ and dK products as
+//     register A operands (the accumulator's layout is the A fragment's, per
+//     warp). S and dP (S^T and dP^T) read both operands from shared memory.
+//   - Loads: a producer warp issues TMA copies into a ring of stages guarded
+//     by mbarriers (full/empty), and cp.async copies of the per-row vectors
+//     (bias; lse and D_i) that arrive on the same barrier, so loads run ahead
+//     of the products and no block-wide barrier stands between tiles. TMA
+//     zero-fills rows past S and writes the 128-byte swizzle that the wgmma
+//     descriptors read: K-major for S and dP, MN-major (the transpose bit)
+//     for the tile read along its rows (K in dQ += dS.K, dO and Q in
+//     dV += P^T.dO and dK += dS^T.Q). D = 128 is two 64-column panels.
+//   - Registers: 384 threads (a producer warpgroup and two consumer
+//     warpgroups of 64 rows, one block an SM) leave 168 registers a thread.
+//     setmaxnreg moves registers from the producer (56) to the consumers
+//     (224) at run time, but ptxas still compiles the consumers' code within
+//     168 (no register above R166 in their SASS), and near that limit it
+//     serialises the wgmmas. So the design fits 168: at D = 64 a consumer of
+//     the dK/dV pass holds dK and dV (32 + 32 floats) with S^T and dP^T of a
+//     64-query tile; at D = 128 it could not (dK and dV alone are 128
+//     floats), so there the two consumers split the work of 64 keys (below).
+//     Neither pass spills at either D.
+//   - Ragged edges: a streamed tile is trimmed to the least of N = 8, 16, 32,
+//     64 that covers its live rows (a 1-row tail costs an n8 product, not an
+//     n64), and a warpgroup skips the tiles its rows cannot see (past its
+//     causal frontier) and, with no row before S or kv_len, all of them. At
+//     577 tokens a (b, h) computes 640 x 584 (query, key) pairs in each pass
+//     (10 warpgroups of 64 rows against 9 tiles of 64 and one of 8), 1.12x
+//     577^2, where 64-row blocks over 64-wide tiles computed 640^2 (1.23x).
+//   - Seven products for five: the dQ pass recomputes S and dP (0.044 ms at
+//     the train call's bound), the price of having no atomics.
+//   What holds it at D = 64 (measured, clock64 phases of one block): each
+//   warpgroup's tile is a chain (S and dP products, then the exponentials on
+//   the MUFU unit, then dS, then the RS product) that the 168-register limit
+//   leaves no room to pipeline across tiles; removing every S and dP product
+//   moves the dQ pass by 10% only. One block an SM also exposes each block's
+//   start (the resident copies) and end.
 //
-// Design: FlashAttention-2's backward on the forward's machinery (ldmatrix /
-// ldmatrix.trans fragments, a 2-stage cp.async ring, rows padded by 16 bytes
-// so that the 8 row addresses of one ldmatrix fall in 8 bank groups), in two
-// passes with no atomics, so the gradient is the same bit for bit from run to
-// run (FA2's atomicAdd of dQ is not used; the recompute is the price):
-//   1. dQ pass: one block of 4 warps per (b*h, 64-query tile), each warp 16
-//      query rows; under causal the query tiles run heaviest first. Its
-//      prologue takes D_i = rowsum(dO * O) of its rows (two threads a row,
-//      16-byte loads) and writes it to `rowsum` for pass 2. Q and dO stay in
-//      shared memory; K/V tiles of 64 keys stream through the ring up to the
-//      block's causal frontier and kv_len. Per tile: S = Q.K^T and
-//      dP = dO.V^T (ldmatrix of K and V rows), P and dS in the accumulator
-//      layout, dS rounded to bf16 straight into A fragments, dQ += dS.K
-//      (K by ldmatrix.trans). dQ stays in f32 registers.
-//   2. dK/dV pass: one block of 4 warps per (b*h, 64-key tile), each warp 16
-//      key rows; K and V stay in shared memory, Q/dO tiles of 64 queries
-//      (with their lse and D_i) stream through the ring from the key tile's
-//      causal frontier on. Per tile, transposed: S^T = K.Q^T, P^T, then
-//      dV += P^T.dO (dO by ldmatrix.trans), dP^T = V.dO^T, dS^T and the
-//      dbias sums, dK += dS^T.Q (Q by ldmatrix.trans). dK and dV stay in f32
-//      registers (D floats a thread) and leave through the warp's own K/V
-//      rows of shared memory in 16-byte stores.
-//   Masks apply element by element only on tiles that hold a masked pair.
-// Out of scope here: wgmma, TMA, warp specialisation, persistent blocks.
+// Design, two passes with no atomics and no inter-block waits, so the
+// gradient is the same bit for bit from run to run:
+//   1. dQ pass: one block per (b*h, 128-query tile), heaviest first under
+//      causal. Q, dO and O stay in shared memory (resident, a TMA box of 64
+//      rows a warpgroup and panel); each consumer thread forms D_i =
+//      rowsum(dO * O) of its two rows from the resident dO and O (a quad
+//      splits a row's columns) and writes it to `rowsum` for pass 2. K, V
+//      tiles of 64 keys (with the bias) stream through a ring of 4 stages at
+//      D=64, 3 at D=128, up to the block's causal frontier and kv_len. Per
+//      tile: S = Q.K^T and dP = dO.V^T (SS, two commit groups: P is formed
+//      while dP's product runs), dS rounded to bf16 into A fragments,
+//      dQ += dS.K (RS).
+//   2. dK/dV pass, D = 64: one block per (b*h, 128-key tile), each consumer
+//      warpgroup 64 keys; K and V resident, Q and dO tiles of 64 queries
+//      (with their lse and D_i) stream from the block's causal frontier on.
+//      Per tile, transposed: S^T = K.Q^T and dP^T = V.dO^T (SS), P^T,
+//      dV += P^T.dO (RS) issued before dS^T is formed so the two overlap,
+//      dS^T and the dbias sums, dK += dS^T.Q (RS).
+//      D = 128: one block per (b*h, 64-key tile). Consumer 0 forms S^T, P^T
+//      and dV += P^T.dO; it hands P^T (f32) to consumer 1 through shared
+//      memory (two named barriers: ready, free), which forms dP^T, dS^T, the
+//      dbias sums and dK += dS^T.Q. Each holds one 64 x 128 accumulator and
+//      runs two products a tile; each role is its own instantiation, since
+//      one wgmma sequence over both roles was serialised.
+//   Each gradient leaves through the rows of the resident tiles it was
+//   computed from (written in the swizzled layout, read back in 16-byte
+//   pieces). Masks apply element by element only on tiles that hold a
+//   masked pair.
+// Tiles: streamed width 64 (m64n64 products, 32 accumulator floats a thread;
+// narrower tiles read the resident operand from shared memory more often
+// and were slower). Dynamic shared memory a block: dQ pass 114 KB at D=64,
+// 194 KB at D=128; dK/dV pass 99 KB, 147 KB (with P^T's 16 KB hand-off).
+// One block an SM, held there by the 384 x 168 registers.
+// Each call encodes its tensor maps on the host (q, k, v, out and dout move
+// from call to call) through the driver's cuTensorMapEncodeTiled, reached
+// with cudaGetDriverEntryPoint so that the build links no -lcuda.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <chrono>
+#include <type_traits>
+
 namespace {
 
-constexpr int WARPS = 4;
-constexpr int THREADS = 32 * WARPS;
-constexpr int BQ = 16 * WARPS;  // query rows per tile
-constexpr int BK = 16 * WARPS;  // key rows per tile
-constexpr int STAGES = 2;       // ring depth
-constexpr int NB = 64 / 8;      // n-blocks (8 columns) of a 64-wide score tile
+using bf16 = __nv_bfloat16;
+template <int N>
+using Int = std::integral_constant<int, N>;
+
+constexpr int THREADS = 384;   // a producer warpgroup, then two consumer warpgroups
+constexpr int ROWS = 128;      // dQ pass: resident rows a block, 64 a consumer warpgroup
+constexpr int PANEL = 64;      // bf16 columns of one 128-byte swizzled row
+constexpr int PRODUCER_REGS = 56, CONSUMER_REGS = 224;  // 128*56 + 256*224 = 384*168
 constexpr float NEG = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 
+// Tiles and shared memory of one head dim. Every tile region starts on 1024
+// bytes (the 128-byte swizzle's period); the per-row vectors and the
+// mbarriers follow the tiles.
 template <int D>
-struct Layout {
-  static constexpr int LD = D + 8;      // padded row, in bf16 elements
-  static constexpr int TILE = 64 * LD;  // one 64-row tile
-  // two resident tiles (dQ pass: Q, dO; dK/dV pass: K, V), a ring of two
-  // streamed tiles a stage, and STAGES x 64 floats of each per-row vector
-  static constexpr size_t DQ_BYTES =
-      (size_t)(2 + 2 * STAGES) * TILE * sizeof(__nv_bfloat16) + (STAGES + 1) * 64 * sizeof(float);
-  static constexpr size_t DKDV_BYTES =
-      (size_t)(2 + 2 * STAGES) * TILE * sizeof(__nv_bfloat16) + 2 * STAGES * 64 * sizeof(float);
+struct Cfg {
+  static constexpr int NP = D / PANEL;            // panels a row
+  static constexpr int BC = 64;                   // dQ pass: keys a streamed tile
+  static constexpr int BQ = 64;                   // dK/dV pass: queries a streamed tile
+  static constexpr int STAGES = D == 64 ? 4 : 3;  // ring depth
+  // dK/dV pass at D = 128: the two consumer warpgroups share 64 keys, one
+  // forming P^T and dV, the other dP^T, dS^T and dK (see the header)
+  static constexpr bool SPLIT = D == 128;
+  static constexpr int KEYS = SPLIT ? 64 : ROWS;  // dK/dV pass: resident keys a block
+  static constexpr int RES_PANEL = ROWS * 128;    // one resident panel of 128 rows
+  static constexpr int RES_TILE = NP * RES_PANEL;
+  static constexpr int KRES_PANEL = KEYS * 128, KRES_TILE = NP * KRES_PANEL;
+  static constexpr int KV_PANEL = BC * 128, KV_TILE = NP * KV_PANEL;
+  static constexpr int QD_PANEL = BQ * 128, QD_TILE = NP * QD_PANEL;
+  // dQ pass: Q, dO, O | STAGES x (K, V) | STAGES x bias[BC] | barriers
+  static constexpr int DQ_RING = 3 * RES_TILE;
+  static constexpr int DQ_BIAS = DQ_RING + STAGES * 2 * KV_TILE;
+  static constexpr int DQ_BAR = DQ_BIAS + STAGES * BC * 4;
+  static constexpr int DQ_BYTES = DQ_BAR + (2 * STAGES + 1) * 8 + 1024;  // + alignment slack
+  // dK/dV pass: K, V | STAGES x (Q, dO) | STAGES x lse[BQ] | STAGES x D_i[BQ] |
+  // P^T handed between the warpgroups [BQ/2][128] f32 (SPLIT) | barriers
+  static constexpr int KV_RING = 2 * KRES_TILE;
+  static constexpr int KV_LSE = KV_RING + STAGES * 2 * QD_TILE;
+  static constexpr int KV_RS = KV_LSE + STAGES * BQ * 4;
+  static constexpr int KV_P = KV_RS + STAGES * BQ * 4;
+  static constexpr int KV_BAR = KV_P + (SPLIT ? BQ / 2 * 128 * 4 : 0);
+  static constexpr int DKDV_BYTES = KV_BAR + (2 * STAGES + 1) * 8 + 1024;
+};
+
+// named barriers (0 is __syncthreads): 1 + w over consumer warpgroup w's 128
+// threads; over both consumer warpgroups (256): P^T handed over, its buffer
+// free again, the products done
+constexpr int BAR_P_READY = 3, BAR_P_FREE = 4, BAR_PRODUCTS = 5;
+
+struct DqParams {
+  CUtensorMap q, dout, out, k, v;  // q, dout, out: boxes of 64 rows; k, v: of BC rows
+  const float* bias;
+  const float* lse;
+  const int* kv_len;
+  bf16* dq;
+  float* rowsum;
+  int H, Sq, Sk, causal;
+  float scale_log2, scale;
+};
+
+struct DkdvParams {
+  CUtensorMap k, v, q, dout;  // k, v: boxes of 64 rows; q, dout: of BQ rows
+  const float* lse;
+  const float* rowsum;
+  const float* bias;
+  const int* kv_len;
+  bf16* dk;
+  bf16* dv;
+  float* dbias_part;
+  int H, Sq, Sk, causal;
+  float scale_log2, scale;
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// 16-byte async copy; with valid == false the destination is zero-filled
-// and nothing is read.
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(dst), "l"(src), "r"(valid ? 16 : 0) : "memory");
+// ---- mbarriers and TMA
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count) : "memory");
 }
 
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(bar) : "memory");
+}
+
+__device__ __forceinline__ bool mbar_test(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile("{\n.reg .pred p;\n"
+               "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+               "selp.u32 %0, 1, 0, p;\n}\n"
+               : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  return done != 0;
+}
+
+__device__ __forceinline__ uint64_t global_ns() {
+  uint64_t t;
+  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
+  return t;
+}
+
+// Waits for the phase of `parity` to complete. A phase that never completes
+// (a lost TMA box, a miscounted arrival) traps after 4 s: the launch fails
+// with an error instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  if (mbar_test(bar, parity)) return;
+  const uint64_t t0 = global_ns();
+  while (!mbar_test(bar, parity))
+    if (global_ns() - t0 > 4000000000ull) __trap();
+}
+
+__device__ __forceinline__ void tma_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0,
+                                       int c1, int c2) {
+  asm volatile("cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+               "[%0], [%1, {%3, %4, %5}], [%2];\n"
+               :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+                  "r"(c2)
+               : "memory");
+}
+
+// 4-byte asynchronous copy; with valid == false the destination is zero-filled
+// and nothing is read
 __device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool valid) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
                :: "r"(dst), "l"(src), "r"(valid ? 4 : 0) : "memory");
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
+// one arrival on `bar` once this thread's earlier cp.async copies have landed
+// (counted in the barrier's expected arrivals)
+__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" :: "r"(bar) : "memory");
+}
+
+// barrier `id` (1 + consumer warpgroup) over the 128 threads of a warpgroup
+__device__ __forceinline__ void wg_sync(int id) {
+  asm volatile("bar.sync %0, 128;\n" :: "r"(id) : "memory");
+}
+
+// named barrier `id` over both consumer warpgroups: wait for it, or arrive
+// without waiting
+__device__ __forceinline__ void pair_sync(int id) {
+  asm volatile("bar.sync %0, 256;\n" :: "r"(id) : "memory");
+}
+
+__device__ __forceinline__ void pair_arrive(int id) {
+  asm volatile("bar.arrive %0, 256;\n" :: "r"(id) : "memory");
+}
+
+// ---- wgmma
+
+// descriptor of a 128-byte-swizzled operand at shared address `addr`: 8-row
+// groups 1024 bytes apart (SBO); `lbo` is the panel stride of an MN-major
+// operand wider than 64 columns (unused by K-major operands)
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// waits until at most N of this warpgroup's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+
+// keeps the compiler from moving reads or writes of registers that an
+// in-flight wgmma owns across the fence
+template <int N>
+__device__ __forceinline__ void reg_fence(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
 }
 
 template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+__device__ __forceinline__ void reg_fence(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j]) :: "memory");
 }
 
-__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr) : "memory");
+// d (64 x N a warpgroup, N/2 floats a thread) = or += A.B^T, A and B K-major
+// in shared memory (scale_d 0: d = A.B^T)
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a, uint64_t b, int scale_d);
+
+// d (64 x N) += A.B, A the warpgroup's 64 x 16 bf16 fragments in registers,
+// B (16 x N) MN-major in shared memory
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t b);
+
+template <>
+__device__ __forceinline__ void wgmma_ss<8>(float (&d)[4], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, %4, %5, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(a), "l"(b), "r"(scale_d));
 }
 
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t addr, uint32_t (&r)[4]) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr) : "memory");
+template <>
+__device__ __forceinline__ void wgmma_ss<16>(float (&d)[8], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7])
+      : "l"(a), "l"(b), "r"(scale_d));
 }
 
-// c += a (16x16, row) . b (16x8, col), bf16 in, f32 accumulate.
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+template <>
+__device__ __forceinline__ void wgmma_ss<32>(float (&d)[16], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, "
+      "%17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<64>(float (&d)[32], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, "
+      "%17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<64>(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, "
+      "%17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<128>(float (&d)[64], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, "
+      "%17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, "
+      "%33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, "
+      "%49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]),
+        "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// ---- element work
+
+// 2^x (MUFU.EX2; results below 2^-126 flush to 0)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // two floats -> one register of two bf16 (round to nearest even), lo first
@@ -141,380 +432,707 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-// acc (16 rows x 64 columns per warp) = A.B^T: A the warp's 16 rows of `a`,
-// B the 64 rows of `b`, both [64][LD] row-major with D columns
+// a 64 x N accumulator as bf16 A fragments of 16 columns (k-steps); an
+// 8-wide one fills the upper 8 columns of its k-step with zeros
+template <int N>
+__device__ __forceinline__ void to_frags(uint32_t (&f)[(N + 15) / 16][4], const float (&x)[N / 2]) {
+#pragma unroll
+  for (int nb = 0; nb < N / 8; ++nb) {
+    f[nb >> 1][(nb & 1) * 2] = pack_bf16(x[4 * nb], x[4 * nb + 1]);
+    f[nb >> 1][(nb & 1) * 2 + 1] = pack_bf16(x[4 * nb + 2], x[4 * nb + 3]);
+  }
+  if constexpr (N % 16 != 0) f[N / 16][2] = f[N / 16][3] = 0u;
+}
+
+// A thread's 64 x D accumulator rows (warp's 16, rows g and g + 8), times
+// `mul`, as bf16 into `dst`: the warpgroup's 64 rows of a resident tile, in
+// the 128-byte swizzle (16-byte piece c of row r at c ^ (r % 8)), panels
+// `panel_bytes` apart
 template <int D>
-__device__ __forceinline__ void rows_dot_rows(float (&acc)[NB][4], const __nv_bfloat16* a,
-                                              const __nv_bfloat16* b, int warp, int lane) {
-  constexpr int LD = D + 8;
+__device__ __forceinline__ void stage_rows(unsigned char* dst, const float (&acc)[D / 2], float mul,
+                                           int panel_bytes, int warp, int g, int t4) {
+  const int ra = warp * 16 + g, rb = ra + 8;
 #pragma unroll
-  for (int nb = 0; nb < NB; ++nb) acc[nb][0] = acc[nb][1] = acc[nb][2] = acc[nb][3] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    uint32_t af[4];
-    ldsm_x4(smem_u32(a + (warp * 16 + (lane & 15)) * LD + kk * 16 + (lane >> 4) * 8), af);
-#pragma unroll
-    for (int jp = 0; jp < NB / 2; ++jp) {
-      uint32_t r[4];
-      ldsm_x4(smem_u32(b + (jp * 16 + (lane & 7) + ((lane >> 4) << 3)) * LD + kk * 16 +
-                       ((lane >> 3) & 1) * 8), r);
-      mma_bf16(acc[2 * jp], af, r[0], r[1]);
-      mma_bf16(acc[2 * jp + 1], af, r[2], r[3]);
-    }
+  for (int j = 0; j < D / 8; ++j) {
+    unsigned char* panel = dst + (j >> 3) * panel_bytes + (((j & 7) ^ g) << 4) + 4 * t4;
+    *reinterpret_cast<__nv_bfloat162*>(panel + ra * 128) =
+        __floats2bfloat162_rn(acc[4 * j] * mul, acc[4 * j + 1] * mul);
+    *reinterpret_cast<__nv_bfloat162*>(panel + rb * 128) =
+        __floats2bfloat162_rn(acc[4 * j + 2] * mul, acc[4 * j + 3] * mul);
   }
 }
 
-// acc (16 rows x D per warp) += A.B: A the warp's 16 x 64 fragments `af`
-// (rounded scores), B the 64 rows of `b` ([64][LD], D columns), by
-// ldmatrix.trans
+// rows [r0, r0 + 64) of a [S, D] slab from the staged, swizzled rows `src`,
+// in 16-byte pieces, for the rows before S
 template <int D>
-__device__ __forceinline__ void frags_dot_tile(float (&acc)[D / 8][4],
-                                               const uint32_t (&af)[NB / 2][4],
-                                               const __nv_bfloat16* b, int lane) {
-  constexpr int LD = D + 8;
-#pragma unroll
-  for (int kk = 0; kk < NB / 2; ++kk) {
-#pragma unroll
-    for (int dp = 0; dp < D / 16; ++dp) {
-      uint32_t r[4];
-      ldsm_x4_trans(smem_u32(b + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
-                             dp * 16 + (lane >> 4) * 8), r);
-      mma_bf16(acc[2 * dp], af[kk], r[0], r[1]);
-      mma_bf16(acc[2 * dp + 1], af[kk], r[2], r[3]);
-    }
-  }
-}
-
-// the accumulator layout's 16 x 64 floats as bf16 A fragments, 16 columns each
-__device__ __forceinline__ void to_frags(uint32_t (&f)[NB / 2][4], const float (&x)[NB][4]) {
-#pragma unroll
-  for (int nb = 0; nb < NB; ++nb) {
-    f[nb >> 1][(nb & 1) * 2] = pack_bf16(x[nb][0], x[nb][1]);
-    f[nb >> 1][(nb & 1) * 2 + 1] = pack_bf16(x[nb][2], x[nb][3]);
-  }
-}
-
-// rows [r0, r0 + 64) of a [S, D] slab into dst[64][LD]; rows at or past `end`
-// zero-filled (not read)
-template <int D>
-__device__ __forceinline__ void copy_tile(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                          int r0, int end, int tid) {
-  constexpr int LD = D + 8, CH = D / 8;
-#pragma unroll
-  for (int i = 0; i < 64 * CH / THREADS; ++i) {
-    const int c = tid + i * THREADS, r = c / CH, col = (c % CH) * 8;
-    const bool ok = r0 + r < end;
-    cp_async16(smem_u32(dst + r * LD + col), src + (ok ? (size_t)(r0 + r) * D + col : 0), ok);
-  }
-}
-
-// the warp's 16 rows x D of f32 accumulators, times `mul`, as bf16 rows
-// [row0, row0 + 16) of `dst` ([S, D]) for the rows before S; staged through
-// the warp's own rows `stage` of a [64][LD] tile
-template <int D>
-__device__ __forceinline__ void store_rows(__nv_bfloat16* dst, const float (&acc)[D / 8][4],
-                                           float mul, __nv_bfloat16* stage, int row0, int S,
-                                           int lane) {
-  constexpr int LD = D + 8, CH = D / 8;
-  const int g = lane >> 2, t4 = lane & 3;
-#pragma unroll
-  for (int db = 0; db < D / 8; ++db) {
-    const int col = db * 8 + 2 * t4;
-    *reinterpret_cast<__nv_bfloat162*>(stage + g * LD + col) =
-        __floats2bfloat162_rn(acc[db][0] * mul, acc[db][1] * mul);
-    *reinterpret_cast<__nv_bfloat162*>(stage + (g + 8) * LD + col) =
-        __floats2bfloat162_rn(acc[db][2] * mul, acc[db][3] * mul);
-  }
-  __syncwarp();
-#pragma unroll
-  for (int i = 0; i < 16 * CH / 32; ++i) {
-    const int c = lane + i * 32, r = c / CH, col = (c % CH) * 8;
-    if (row0 + r < S)
-      *reinterpret_cast<uint4*>(dst + (size_t)(row0 + r) * D + col) =
-          *reinterpret_cast<const uint4*>(stage + r * LD + col);
-  }
-}
-
-// pass 1: dQ, and rowsum(dO * O) for pass 2
-template <int D>
-__global__ void __launch_bounds__(THREADS)
-flash_mma_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                        const __nv_bfloat16* __restrict__ v,
-                        const __nv_bfloat16* __restrict__ out,
-                        const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
-                        const float* __restrict__ bias, const int* __restrict__ kv_len,
-                        __nv_bfloat16* __restrict__ dq, float* __restrict__ rowsum, int H,
-                        int Sq, int Sk, int causal, float scale_log2, float scale) {
-  using L = Layout<D>;
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem);  // [64][LD]
-  __nv_bfloat16* dos = qs + L::TILE;                             // [64][LD]
-  __nv_bfloat16* ks = dos + L::TILE;                             // [STAGES][64][LD]
-  __nv_bfloat16* vs = ks + STAGES * L::TILE;                     // [STAGES][64][LD]
-  float* bsm = reinterpret_cast<float*>(vs + STAGES * L::TILE);  // [STAGES][64]
-  float* dds = bsm + STAGES * BK;                                // [64] rowsum
-
-  const int bh = blockIdx.x, b = bh / H;
-  const int q0 = (causal ? (int)(gridDim.y - 1 - blockIdx.y) : (int)blockIdx.y) * BQ;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int shift = Sk - Sq;
-  const int row0 = q0 + warp * 16 + g;  // this thread's rows: row0, row0 + 8
-  const size_t qoff = (size_t)bh * Sq * D, koff = (size_t)bh * Sk * D;
-  const __nv_bfloat16* kg = k + koff;
-  const __nv_bfloat16* vg = v + koff;
-  const float* bg = bias != nullptr ? bias + (size_t)b * Sk : nullptr;
-
-  int kend = Sk;
-  if (kv_len != nullptr) kend = min(kend, max(kv_len[b], 0));
-  int tile_end = kend;
-  if (causal) tile_end = min(tile_end, max(min(q0 + BQ, Sq) + shift, 0));
-  const int n_tiles = (tile_end + BK - 1) / BK;
-
-  auto load_tile = [&](int tile) {
-    const int t0 = tile * BK, st = tile % STAGES;
-    copy_tile<D>(ks + st * L::TILE, kg, t0, kend, tid);
-    copy_tile<D>(vs + st * L::TILE, vg, t0, kend, tid);
-    if (tid < BK) {
-      const bool ok = bg != nullptr && t0 + tid < Sk;
-      cp_async4(smem_u32(bsm + st * BK + tid), ok ? bg + t0 + tid : (const float*)kg, ok);
-    }
-  };
-
-  // prologue: Q and dO with tile 0 in group 0, tile 1 in group 1
-  copy_tile<D>(qs, q + qoff, q0, Sq, tid);
-  copy_tile<D>(dos, dout + qoff, q0, Sq, tid);
-  if (n_tiles > 0) load_tile(0);
-  cp_async_commit();
-  if (n_tiles > 1) load_tile(1);
-  cp_async_commit();
-
-  // rowsum(dO * O) of the block's rows, two threads a row, while copies fly
-  {
-    const int r = tid >> 1, half = tid & 1, qr = q0 + r;
-    float acc = 0.f;
-    if (qr < Sq) {
-      const size_t off = qoff + (size_t)qr * D + half * (D / 2);
-#pragma unroll
-      for (int c = 0; c < D / 2; c += 8) {
-        const uint4 ov = *reinterpret_cast<const uint4*>(out + off + c);
-        const uint4 dv = *reinterpret_cast<const uint4*>(dout + off + c);
-        const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
-        const __nv_bfloat162* d2 = reinterpret_cast<const __nv_bfloat162*>(&dv);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float2 of = __bfloat1622float2(o2[i]), df = __bfloat1622float2(d2[i]);
-          acc = fmaf(df.x, of.x, fmaf(df.y, of.y, acc));
-        }
-      }
-    }
-    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
-    if (half == 0) {
-      dds[r] = acc;
-      if (qr < Sq) rowsum[(size_t)bh * Sq + qr] = acc;
-    }
-  }
-  const float ls0 = row0 < Sq ? lse[(size_t)bh * Sq + row0] * LOG2E : INFINITY;
-  const float ls1 = row0 + 8 < Sq ? lse[(size_t)bh * Sq + row0 + 8] * LOG2E : INFINITY;
-  cp_async_wait<1>();
-  __syncthreads();
-  const float dd0 = dds[warp * 16 + g], dd1 = dds[warp * 16 + g + 8];
-
-  float acc[D / 8][4];
-#pragma unroll
-  for (int db = 0; db < D / 8; ++db) acc[db][0] = acc[db][1] = acc[db][2] = acc[db][3] = 0.f;
-
-#pragma unroll 1
-  for (int tile = 0; tile < n_tiles; ++tile) {
-    cp_async_wait<1>();  // group `tile` has landed
-    __syncthreads();
-    const int st = tile % STAGES, t0 = tile * BK;
-    const __nv_bfloat16* kt = ks + st * L::TILE;
-    const __nv_bfloat16* vt = vs + st * L::TILE;
-    const float* bt = bsm + st * BK;
-
-    float s[NB][4], dp[NB][4];
-    rows_dot_rows<D>(s, qs, kt, warp, lane);   // S = Q.K^T
-    rows_dot_rows<D>(dp, dos, vt, warp, lane); // dP = dO.V^T
-    const bool edge = t0 + BK > kend || (causal && t0 + BK - 1 > q0 + shift);
-#pragma unroll
-    for (int nb = 0; nb < NB; ++nb) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int kl = nb * 8 + 2 * t4 + (e & 1);
-        float p = exp2f(fmaf(s[nb][e], scale_log2, fmaxf(bt[kl], NEG) * LOG2E) -
-                        (e < 2 ? ls0 : ls1));
-        if (edge) {
-          const int kpos = t0 + kl, qpos = row0 + (e >> 1) * 8;
-          if (kpos >= kend || (causal && kpos > qpos + shift)) p = 0.f;
-        }
-        dp[nb][e] = p * (dp[nb][e] - (e < 2 ? dd0 : dd1));  // dS
-      }
-    }
-    uint32_t dsf[NB / 2][4];
-    to_frags(dsf, dp);
-    frags_dot_tile<D>(acc, dsf, kt, lane);  // dQ += dS.K
-
-    __syncthreads();  // every warp is done with this stage
-    if (tile + STAGES < n_tiles) load_tile(tile + STAGES);
-    cp_async_commit();
-  }
-
-  cp_async_wait<0>();
-  __syncthreads();  // no copy into the shared tiles is pending (n_tiles may be 0)
-  store_rows<D>(dq + qoff, acc, scale, qs + warp * 16 * L::LD, q0 + warp * 16, Sq, lane);
-}
-
-// pass 2: dK, dV and the per-head dbias sums
-template <int D>
-__global__ void __launch_bounds__(THREADS)
-flash_mma_bwd_dkdv_kernel(const __nv_bfloat16* __restrict__ q,
-                          const __nv_bfloat16* __restrict__ k,
-                          const __nv_bfloat16* __restrict__ v,
-                          const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
-                          const float* __restrict__ rowsum, const float* __restrict__ bias,
-                          const int* __restrict__ kv_len, __nv_bfloat16* __restrict__ dk,
-                          __nv_bfloat16* __restrict__ dv, float* __restrict__ dbias_part, int H,
-                          int Sq, int Sk, int causal, float scale_log2, float scale) {
-  using L = Layout<D>;
+__device__ __forceinline__ void copy_out(bf16* dst, const unsigned char* src, int panel_bytes,
+                                         int r0, int S, int tid) {
   constexpr int CH = D / 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem);  // [64][LD]
-  __nv_bfloat16* vs = ks + L::TILE;                              // [64][LD]
-  __nv_bfloat16* qs = vs + L::TILE;                              // [STAGES][64][LD]
-  __nv_bfloat16* dos = qs + STAGES * L::TILE;                    // [STAGES][64][LD]
-  float* lsm = reinterpret_cast<float*>(dos + STAGES * L::TILE); // [STAGES][64] lse
-  float* rsm = lsm + STAGES * BQ;                                // [STAGES][64] rowsum
-
-  const int bh = blockIdx.x, b = bh / H;
-  const int k0 = blockIdx.y * BK;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int shift = Sk - Sq;
-  const int kr0 = k0 + warp * 16 + g;  // this thread's key rows: kr0, kr0 + 8
-  const size_t qoff = (size_t)bh * Sq * D, koff = (size_t)bh * Sk * D;
-
-  int kend = Sk;
-  if (kv_len != nullptr) kend = min(kend, max(kv_len[b], 0));
-  if (k0 >= kend) {  // no query sees a key of this tile: zeros
 #pragma unroll
-    for (int i = 0; i < 64 * CH / THREADS; ++i) {
-      const int c = tid + i * THREADS, r = c / CH, col = (c % CH) * 8;
-      if (k0 + r < Sk) {
-        *reinterpret_cast<uint4*>(dk + koff + (size_t)(k0 + r) * D + col) = make_uint4(0, 0, 0, 0);
-        *reinterpret_cast<uint4*>(dv + koff + (size_t)(k0 + r) * D + col) = make_uint4(0, 0, 0, 0);
+  for (int i = 0; i < 64 * CH / 128; ++i) {
+    const int c = tid + i * 128, r = c / CH, cg = c % CH;
+    if (r0 + r < S)
+      *reinterpret_cast<uint4*>(dst + (size_t)(r0 + r) * D + cg * 8) =
+          *reinterpret_cast<const uint4*>(src + (cg >> 3) * panel_bytes + r * 128 +
+                                          (((cg & 7) ^ (r & 7)) << 4));
+  }
+}
+
+// tile(Int<N>{}) for the least N of 8, 16, 32, 64 that covers `live` rows of
+// a streamed tile (the widths the kernels instantiate)
+template <typename Tile>
+__device__ __forceinline__ void with_width(int live, Tile&& tile) {
+  if (live > 32) tile(Int<64>{});
+  else if (live > 16) tile(Int<32>{});
+  else if (live > 8) tile(Int<16>{});
+  else tile(Int<8>{});
+}
+
+// ---- pass 1: dQ, and rowsum(dO * O) for pass 2
+
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_mma_bwd_dq_kernel(const __grid_constant__ DqParams p) {
+  using C = Cfg<D>;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* gbase = smem_raw + (base - raw);
+  const uint32_t sQ = base, sDO = base + C::RES_TILE, sO = base + 2 * C::RES_TILE;
+  const uint32_t sRing = base + C::DQ_RING;
+  float* bias_s = reinterpret_cast<float*>(gbase + C::DQ_BIAS);  // [STAGES][BC]
+  const uint32_t bar = base + C::DQ_BAR;  // full[STAGES], empty[STAGES], resident
+  const uint32_t resident = bar + 16 * C::STAGES;
+
+  const int bh = blockIdx.x, b = bh / p.H;
+  const int q0 = (p.causal ? (int)(gridDim.y - 1 - blockIdx.y) : (int)blockIdx.y) * ROWS;
+  const int shift = p.Sk - p.Sq;
+  int kend = p.Sk;
+  if (p.kv_len != nullptr) kend = min(kend, max(p.kv_len[b], 0));
+  int blk_end = kend;  // keys any row of the block sees end here
+  if (p.causal) blk_end = min(blk_end, max(min(q0 + ROWS, p.Sq) + shift, 0));
+  const int n_tiles = (blk_end + C::BC - 1) / C::BC;
+  const int n_live = q0 + 64 < p.Sq ? 2 : 1;  // consumer warpgroups with a row before Sq
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < C::STAGES; ++s) {
+      mbar_init(bar + 8 * s, 33);  // the copies' expect_tx and each producer lane's vectors
+      mbar_init(bar + 8 * (C::STAGES + s), 4 * n_live);  // one arrival a consumer warp
+    }
+    mbar_init(resident, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // the warpgroup's role as a warp-uniform value: setmaxnreg and wgmma act
+  // on whole warpgroups
+  const int wgi = __shfl_sync(0xffffffffu, (int)threadIdx.x >> 7, 0);
+  if (wgi == 0) {  // producer warpgroup: its first warp loads
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(PRODUCER_REGS));
+    const int lane = threadIdx.x;
+    if (lane < 32) {
+      if (lane == 0) {  // Q, dO and O (for D_i), also when no key is seen
+        mbar_expect_tx(resident, 3 * C::RES_TILE);
+        for (int w = 0; w < 2; ++w)
+          for (int pp = 0; pp < C::NP; ++pp) {
+            const uint32_t off = pp * C::RES_PANEL + w * 64 * 128;
+            tma_3d(sQ + off, &p.q, resident, pp * PANEL, q0 + 64 * w, bh);
+            tma_3d(sDO + off, &p.dout, resident, pp * PANEL, q0 + 64 * w, bh);
+            tma_3d(sO + off, &p.out, resident, pp * PANEL, q0 + 64 * w, bh);
+          }
+      }
+      for (int i = 0; i < n_tiles; ++i) {
+        const int s = i % C::STAGES, t0 = i * C::BC;
+        if (i >= C::STAGES) mbar_wait(bar + 8 * (C::STAGES + s), ((i / C::STAGES) - 1) & 1);
+        const uint32_t full = bar + 8 * s;
+        if (lane == 0) {
+          mbar_expect_tx(full, 2 * C::KV_TILE);
+          const uint32_t sk = sRing + s * 2 * C::KV_TILE, sv = sk + C::KV_TILE;
+          for (int pp = 0; pp < C::NP; ++pp) {
+            tma_3d(sk + pp * C::KV_PANEL, &p.k, full, pp * PANEL, t0, bh);
+            tma_3d(sv + pp * C::KV_PANEL, &p.v, full, pp * PANEL, t0, bh);
+          }
+        }
+        if (p.bias != nullptr)  // keys past Sk are masked: zeros
+          for (int c = lane; c < C::BC; c += 32) {
+            const bool ok = t0 + c < p.Sk;
+            cp_async4(smem_u32(bias_s + s * C::BC + c),
+                      p.bias + (ok ? (size_t)b * p.Sk + t0 + c : 0), ok);
+          }
+        cp_async_arrive(full);  // when the lane's copies land
       }
     }
-    if (dbias_part != nullptr && tid < BK && k0 + tid < Sk)
-      dbias_part[(size_t)bh * Sk + k0 + tid] = 0.f;
     return;
   }
-  const int q_begin = causal ? max(k0 - shift, 0) : 0;  // < Sq, as k0 < kend <= Sk
-  const int qt_begin = q_begin / BQ;
-  const int n_tiles = (Sq + BQ - 1) / BQ - qt_begin;
-  const float kb0 = (bias != nullptr && kr0 < Sk) ? fmaxf(bias[(size_t)b * Sk + kr0], NEG) * LOG2E
-                                                  : 0.f;
-  const float kb1 = (bias != nullptr && kr0 + 8 < Sk)
-                        ? fmaxf(bias[(size_t)b * Sk + kr0 + 8], NEG) * LOG2E : 0.f;
 
-  auto load_tile = [&](int i) {
-    const int t0 = (qt_begin + i) * BQ, st = i % STAGES;
-    copy_tile<D>(qs + st * L::TILE, q + qoff, t0, Sq, tid);
-    copy_tile<D>(dos + st * L::TILE, dout + qoff, t0, Sq, tid);
-    if (tid < BQ) {
-      const bool ok = t0 + tid < Sq;
-      const size_t off = ok ? (size_t)bh * Sq + t0 + tid : 0;
-      cp_async4(smem_u32(lsm + st * BQ + tid), lse + off, ok);
-    } else {
-      const int j = tid - BQ;
-      const bool ok = t0 + j < Sq;
-      const size_t off = ok ? (size_t)bh * Sq + t0 + j : 0;
-      cp_async4(smem_u32(rsm + st * BQ + j), rowsum + off, ok);
-    }
-  };
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(CONSUMER_REGS));
+  const int wg = wgi - 1;
+  const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int r0 = q0 + 64 * wg;  // the warpgroup's first query row
+  if (r0 >= p.Sq) return;
+  const size_t qoff = (size_t)bh * p.Sq * D;
+  const int row0 = r0 + warp * 16 + g;  // this thread's rows: row0, row0 + 8
+  const float ls0 = row0 < p.Sq ? p.lse[(size_t)bh * p.Sq + row0] * LOG2E : INFINITY;
+  const float ls1 = row0 + 8 < p.Sq ? p.lse[(size_t)bh * p.Sq + row0 + 8] * LOG2E : INFINITY;
+  mbar_wait(resident, 0);
 
-  // prologue: K and V with query tile 0 in group 0, query tile 1 in group 1
-  copy_tile<D>(ks, k + koff, k0, kend, tid);
-  copy_tile<D>(vs, v + koff, k0, kend, tid);
-  load_tile(0);
-  cp_async_commit();
-  if (n_tiles > 1) load_tile(1);
-  cp_async_commit();
-
-  float gk[D / 8][4], gv[D / 8][4];
+  // D_i = rowsum(dO * O) of the thread's rows from the resident dO and O
+  // tiles: a quad's four threads take every fourth 16-byte piece of a row;
+  // rows past Sq were zero-filled. Written to `rowsum` for pass 2.
+  float dd[2];
 #pragma unroll
-  for (int db = 0; db < D / 8; ++db) {
-    gk[db][0] = gk[db][1] = gk[db][2] = gk[db][3] = 0.f;
-    gv[db][0] = gv[db][1] = gv[db][2] = gv[db][3] = 0.f;
+  for (int h = 0; h < 2; ++h) {
+    const int r = wg * 64 + warp * 16 + g + 8 * h;  // row of the resident tiles
+    float a = 0.f;
+#pragma unroll
+    for (int k = 0; k < D / 32; ++k) {
+      const int c = t4 + 4 * k, at = (c >> 3) * C::RES_PANEL + r * 128 + (((c & 7) ^ g) << 4);
+      const uint4 ov = *reinterpret_cast<const uint4*>(gbase + 2 * C::RES_TILE + at);
+      const uint4 dv = *reinterpret_cast<const uint4*>(gbase + C::RES_TILE + at);
+      const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
+      const __nv_bfloat162* d2 = reinterpret_cast<const __nv_bfloat162*>(&dv);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float2 of = __bfloat1622float2(o2[i]), df = __bfloat1622float2(d2[i]);
+        a = fmaf(df.x, of.x, fmaf(df.y, of.y, a));
+      }
+    }
+    dd[h] = quad_sum(a);
+    if (t4 == 0 && row0 + 8 * h < p.Sq) p.rowsum[(size_t)bh * p.Sq + row0 + 8 * h] = dd[h];
   }
-  float db0 = 0.f, db1 = 0.f;
+  const float dd0 = dd[0], dd1 = dd[1];
+
+  int wg_end = kend;  // keys the warpgroup's rows see end here
+  if (p.causal) wg_end = min(wg_end, max(min(r0 + 64, p.Sq) + shift, 0));
+
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  const uint64_t dq_a = sw128_desc(sQ + wg * 64 * 128, 0);
+  const uint64_t ddo_a = sw128_desc(sDO + wg * 64 * 128, 0);
 
 #pragma unroll 1
   for (int i = 0; i < n_tiles; ++i) {
-    cp_async_wait<1>();  // group `i` has landed
-    __syncthreads();
-    const int st = i % STAGES, t0 = (qt_begin + i) * BQ;
-    const __nv_bfloat16* qt = qs + st * L::TILE;
-    const __nv_bfloat16* dot = dos + st * L::TILE;
-    const float* lt = lsm + st * BQ;
-    const float* rt = rsm + st * BQ;
-    // a masked pair in the tile: a query past Sq, a key past kend, or (causal)
-    // a key of the tile past the frontier of the tile's first query
-    const bool edge = t0 + BQ > Sq || k0 + BK > kend || (causal && k0 + BK - 1 > t0 + shift);
-
-    float s[NB][4];
-    rows_dot_rows<D>(s, ks, qt, warp, lane);  // S^T = K.Q^T
+    const int s = i % C::STAGES, t0 = i * C::BC;
+    mbar_wait(bar + 8 * s, (i / C::STAGES) & 1);
+    if (t0 < wg_end) {
+      const uint32_t sk = sRing + s * 2 * C::KV_TILE, sv = sk + C::KV_TILE;
+      const uint64_t dk_b = sw128_desc(sk, 0), dv_b = sw128_desc(sv, 0);
+      const uint64_t dk_mn = sw128_desc(sk, C::KV_PANEL);
+      const float* bt = bias_s + s * C::BC;
+      // one tile, N keys wide (the least of 8, 16, 32, 64 covering its live keys)
+      auto tile = [&](auto n) {
+        constexpr int N = decltype(n)::value, NK = (N + 15) / 16;
+        float sc[N / 2], dp[N / 2];
+        __syncwarp();
+        wg_fence();
 #pragma unroll
-    for (int nb = 0; nb < NB; ++nb) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int ql = nb * 8 + 2 * t4 + (e & 1);
-        float p = exp2f(fmaf(s[nb][e], scale_log2, e < 2 ? kb0 : kb1) - lt[ql] * LOG2E);
-        if (edge) {
-          const int kpos = kr0 + (e >> 1) * 8, qpos = t0 + ql;
-          if (qpos >= Sq || kpos >= kend || (causal && kpos > qpos + shift)) p = 0.f;
+        for (int kk = 0; kk < D / 16; ++kk) {  // S = Q.K^T
+          const uint32_t ra = ((kk >> 2) * C::RES_PANEL + (kk & 3) * 32) >> 4;
+          const uint32_t rb = ((kk >> 2) * C::KV_PANEL + (kk & 3) * 32) >> 4;
+          wgmma_ss<N>(sc, dq_a + ra, dk_b + rb, kk);
         }
-        s[nb][e] = p;  // P^T
-      }
-    }
-    {
-      uint32_t pf[NB / 2][4];
-      to_frags(pf, s);
-      frags_dot_tile<D>(gv, pf, dot, lane);  // dV += P^T.dO
-    }
-    float dp[NB][4];
-    rows_dot_rows<D>(dp, vs, dot, warp, lane);  // dP^T = V.dO^T
+        wg_commit();
 #pragma unroll
-    for (int nb = 0; nb < NB; ++nb) {
+        for (int kk = 0; kk < D / 16; ++kk) {  // dP = dO.V^T
+          const uint32_t ra = ((kk >> 2) * C::RES_PANEL + (kk & 3) * 32) >> 4;
+          const uint32_t rb = ((kk >> 2) * C::KV_PANEL + (kk & 3) * 32) >> 4;
+          wgmma_ss<N>(dp, ddo_a + ra, dv_b + rb, kk);
+        }
+        wg_commit();
+        wg_wait<1>();  // S is in; P while dP's product runs
+        reg_fence(sc);
+        const bool edge = t0 + N > kend || (p.causal && t0 + N - 1 > r0 + shift);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int ql = nb * 8 + 2 * t4 + (e & 1);
-        const float ds = s[nb][e] * (dp[nb][e] - rt[ql]);  // dS^T
-        dp[nb][e] = ds;
-        if (e < 2) db0 += ds; else db1 += ds;
-      }
+        for (int j = 0; j < N / 8; ++j) {
+          float2 bb = make_float2(0.f, 0.f);
+          if (p.bias != nullptr) bb = *reinterpret_cast<const float2*>(bt + 8 * j + 2 * t4);
+          const float b0 = fmaxf(bb.x, NEG) * LOG2E, b1 = fmaxf(bb.y, NEG) * LOG2E;
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int x = 4 * j + e;
+            float pr = ex2(fmaf(sc[x], p.scale_log2, (e & 1) ? b1 : b0) - (e < 2 ? ls0 : ls1));
+            if (edge) {
+              const int kpos = t0 + 8 * j + 2 * t4 + (e & 1), qpos = row0 + (e >> 1) * 8;
+              if (kpos >= kend || (p.causal && kpos > qpos + shift)) pr = 0.f;
+            }
+            sc[x] = pr;  // P
+          }
+        }
+        wg_wait<0>();
+        reg_fence(dp);
+#pragma unroll
+        for (int x = 0; x < N / 2; ++x) dp[x] = sc[x] * (dp[x] - ((x & 2) ? dd1 : dd0));  // dS
+        uint32_t f[NK][4];
+        to_frags<N>(f, dp);
+        __syncwarp();
+        wg_fence();
+        reg_fence(acc);
+#pragma unroll
+        for (int ks = 0; ks < NK; ++ks)  // dQ += dS.K, 16 keys a step
+          wgmma_rs<D>(acc, f[ks], dk_mn + ((ks * 2048) >> 4));
+        wg_commit();
+        wg_wait<0>();
+        reg_fence(acc);
+        reg_fence(f);
+      };
+      with_width(wg_end - t0, tile);
     }
-    {
-      uint32_t dsf[NB / 2][4];
-      to_frags(dsf, dp);
-      frags_dot_tile<D>(gk, dsf, qt, lane);  // dK += dS^T.Q
-    }
-
-    __syncthreads();  // every warp is done with this stage
-    if (i + STAGES < n_tiles) load_tile(i + STAGES);
-    cp_async_commit();
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bar + 8 * (C::STAGES + s));  // this warp is done with stage s
   }
 
-  cp_async_wait<0>();
-  // each warp reads and now overwrites only its own 16 rows of ks and vs
-  store_rows<D>(dk + koff, gk, scale, ks + warp * 16 * L::LD, k0 + warp * 16, Sk, lane);
-  store_rows<D>(dv + koff, gv, 1.f, vs + warp * 16 * L::LD, k0 + warp * 16, Sk, lane);
+  // dQ leaves through the warpgroup's own Q rows
+  unsigned char* stage = gbase + wg * 64 * 128;
+  wg_sync(1 + wg);
+  stage_rows<D>(stage, acc, p.scale, C::RES_PANEL, warp, g, t4);
+  wg_sync(1 + wg);
+  copy_out<D>(p.dq + qoff, stage, C::RES_PANEL, r0, p.Sq, tid);
+}
+
+// ---- pass 2: dK, dV and the per-head dbias sums
+
+// What a consumer warpgroup of the dK/dV pass sees of its block.
+struct DkdvCtx {
+  int bh, b, k0, kend, shift, qt_begin, n_tiles;
+  uint32_t sK, sV, sRing, bar;
+  const float* lse_s;
+  const float* rs_s;
+  float* px;           // P^T handed between the warpgroups (SPLIT)
+  unsigned char* gbase;
+};
+
+// the clamped bias of key row kr in log2 units (0 without a bias or past Sk)
+__device__ __forceinline__ float key_bias(const DkdvParams& p, int b, int kr) {
+  return p.bias != nullptr && kr < p.Sk ? fmaxf(p.bias[(size_t)b * p.Sk + kr], NEG) * LOG2E : 0.f;
+}
+
+// each key row's dbias sum (rows kr0, kr0 + 8 of the thread; a quad holds a
+// row's partial sums) into dbias_part
+__device__ __forceinline__ void write_dbias(const DkdvParams& p, int bh, int kr0, int t4,
+                                            float db0, float db1) {
   db0 = quad_sum(db0);
   db1 = quad_sum(db1);
-  if (dbias_part != nullptr && t4 == 0) {
-    if (kr0 < Sk) dbias_part[(size_t)bh * Sk + kr0] = db0;
-    if (kr0 + 8 < Sk) dbias_part[(size_t)bh * Sk + kr0 + 8] = db1;
+  if (p.dbias_part != nullptr && t4 == 0) {
+    if (kr0 < p.Sk) p.dbias_part[(size_t)bh * p.Sk + kr0] = db0;
+    if (kr0 + 8 < p.Sk) p.dbias_part[(size_t)bh * p.Sk + kr0 + 8] = db1;
   }
+}
+
+// One streamed tile's S^T = K.Q^T or dP^T = V.dO^T (SS, `a` the resident
+// operand's rows, `b` the tile), N queries wide, into d.
+template <int D, int N>
+__device__ __forceinline__ void rows_dot_tile(float (&d)[N / 2], uint64_t a, uint64_t b,
+                                              int res_panel) {
+  using C = Cfg<D>;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t ra = ((kk >> 2) * res_panel + (kk & 3) * 32) >> 4;
+    const uint32_t rb = ((kk >> 2) * C::QD_PANEL + (kk & 3) * 32) >> 4;
+    wgmma_ss<N>(d, a + ra, b + rb, kk);
+  }
+}
+
+// P^T of the thread's elements from S^T in place: keys kr0 and kr0 + 8 (log2
+// bias kb0, kb1), queries t0 + 8j + 2 t4 (+1) with their lse in `lt`
+template <int N>
+__device__ __forceinline__ void probs_t(float (&sc)[N / 2], const float* lt, float kb0, float kb1,
+                                        float scale_log2, bool edge, int kr0, int t0, int t4,
+                                        int Sq, int kend, int causal, int shift) {
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+    const float2 l2 = *reinterpret_cast<const float2*>(lt + 8 * j + 2 * t4);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int x = 4 * j + e;
+      float pr = ex2(fmaf(sc[x], scale_log2, e < 2 ? kb0 : kb1) -
+                     ((e & 1) ? l2.y : l2.x) * LOG2E);
+      if (edge) {
+        const int kpos = kr0 + (e >> 1) * 8, qpos = t0 + 8 * j + 2 * t4 + (e & 1);
+        if (qpos >= Sq || kpos >= kend || (causal && kpos > qpos + shift)) pr = 0.f;
+      }
+      sc[x] = pr;
+    }
+  }
+}
+
+// dS^T = P^T * (dP^T - D_i) in place in dp, and its sums over the thread's
+// queries into db0, db1 (keys kr0, kr0 + 8); P^T element x is pt(x)
+template <int N, typename Pt>
+__device__ __forceinline__ void grads_t(float (&dp)[N / 2], Pt pt, const float* rt, int t4,
+                                        float& db0, float& db1) {
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+    const float2 r2 = *reinterpret_cast<const float2*>(rt + 8 * j + 2 * t4);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int x = 4 * j + e;
+      const float ds = pt(x) * (dp[x] - ((e & 1) ? r2.y : r2.x));
+      dp[x] = ds;
+      if (e < 2) db0 += ds; else db1 += ds;
+    }
+  }
+}
+
+// D = 64: each consumer warpgroup owns 64 of the block's 128 keys and forms
+// all four products for them.
+template <int D>
+__device__ __forceinline__ void dkdv_rows(const DkdvParams& p, const DkdvCtx& c, int wg, int tid) {
+  using C = Cfg<D>;
+  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t4 = lane & 3;
+  const int kw0 = c.k0 + 64 * wg;       // the warpgroup's first key row
+  const int kr0 = kw0 + warp * 16 + g;  // this thread's key rows: kr0, kr0 + 8
+  const bool live = kw0 < c.kend;
+  const float kb0 = key_bias(p, c.b, kr0), kb1 = key_bias(p, c.b, kr0 + 8);
+
+  float gk[D / 2], gv[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) gk[i] = gv[i] = 0.f;
+  float db0 = 0.f, db1 = 0.f;
+  mbar_wait(c.bar + 16 * C::STAGES, 0);  // K and V are in
+  const uint64_t dk_a = sw128_desc(c.sK + wg * 64 * 128, 0);
+  const uint64_t dv_a = sw128_desc(c.sV + wg * 64 * 128, 0);
+
+#pragma unroll 1
+  for (int i = 0; live && i < c.n_tiles; ++i) {
+    const int s = i % C::STAGES, t0 = (c.qt_begin + i) * C::BQ;
+    mbar_wait(c.bar + 8 * s, (i / C::STAGES) & 1);
+    // the warpgroup's first key is seen by a query of the tile
+    if (!p.causal || kw0 <= min(t0 + C::BQ, p.Sq) - 1 + c.shift) {
+      const uint32_t sq = c.sRing + s * 2 * C::QD_TILE, sdo = sq + C::QD_TILE;
+      const float* lt = c.lse_s + s * C::BQ;
+      const float* rt = c.rs_s + s * C::BQ;
+      // one tile, N queries wide (the least of 8, 16, 32, 64 covering its live queries)
+      auto tile = [&](auto n) {
+        constexpr int N = decltype(n)::value, NK = (N + 15) / 16;
+        float sc[N / 2], dp[N / 2];
+        __syncwarp();
+        wg_fence();
+        rows_dot_tile<D, N>(sc, dk_a, sw128_desc(sq, 0), C::RES_PANEL);  // S^T = K.Q^T
+        wg_commit();
+        rows_dot_tile<D, N>(dp, dv_a, sw128_desc(sdo, 0), C::RES_PANEL);  // dP^T = V.dO^T
+        wg_commit();
+        wg_wait<1>();  // S^T is in; P^T while dP^T's product runs
+        reg_fence(sc);
+        // a masked pair in the tile: a query past Sq, a key past kend, or
+        // (causal) a key of the warpgroup past the frontier of the tile's
+        // first query
+        const bool edge =
+            t0 + N > p.Sq || kw0 + 64 > c.kend || (p.causal && kw0 + 63 > t0 + c.shift);
+        probs_t<N>(sc, lt, kb0, kb1, p.scale_log2, edge, kr0, t0, t4, p.Sq, c.kend, p.causal,
+                   c.shift);
+        uint32_t pf[NK][4];
+        to_frags<N>(pf, sc);
+        __syncwarp();
+        wg_fence();
+        reg_fence(gv);
+        const uint64_t ddo_mn = sw128_desc(sdo, C::QD_PANEL);
+#pragma unroll
+        for (int ks = 0; ks < NK; ++ks)  // dV += P^T.dO, 16 queries a step
+          wgmma_rs<D>(gv, pf[ks], ddo_mn + ((ks * 2048) >> 4));
+        wg_commit();
+        wg_wait<1>();  // dP^T is in; dS^T and its dbias sums while dV's product runs
+        reg_fence(dp);
+        grads_t<N>(dp, [&](int x) { return sc[x]; }, rt, t4, db0, db1);
+        uint32_t df[NK][4];
+        to_frags<N>(df, dp);
+        __syncwarp();
+        wg_fence();
+        reg_fence(gk);
+        const uint64_t dq_mn = sw128_desc(sq, C::QD_PANEL);
+#pragma unroll
+        for (int ks = 0; ks < NK; ++ks)  // dK += dS^T.Q
+          wgmma_rs<D>(gk, df[ks], dq_mn + ((ks * 2048) >> 4));
+        wg_commit();
+        wg_wait<0>();
+        reg_fence(gv);
+        reg_fence(gk);
+        reg_fence(pf);
+        reg_fence(df);
+      };
+      with_width(p.Sq - t0, tile);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(c.bar + 8 * (C::STAGES + s));  // this warp is done with stage s
+  }
+
+  // dK and dV leave through the warpgroup's own K and V rows
+  unsigned char* stage_k = c.gbase + wg * 64 * 128;
+  unsigned char* stage_v = c.gbase + C::KRES_TILE + wg * 64 * 128;
+  wg_sync(1 + wg);
+  stage_rows<D>(stage_k, gk, p.scale, C::KRES_PANEL, warp, g, t4);
+  stage_rows<D>(stage_v, gv, 1.f, C::KRES_PANEL, warp, g, t4);
+  wg_sync(1 + wg);
+  const size_t koff = (size_t)c.bh * p.Sk * D;
+  copy_out<D>(p.dk + koff, stage_k, C::KRES_PANEL, kw0, p.Sk, tid);
+  copy_out<D>(p.dv + koff, stage_v, C::KRES_PANEL, kw0, p.Sk, tid);
+  write_dbias(p, c.bh, kr0, t4, db0, db1);
+}
+
+// D = 128: both consumer warpgroups take the block's 64 keys. Warpgroup 0
+// forms S^T, P^T and dV += P^T.dO and hands P^T (f32, in the accumulator's
+// order: element x of thread t at px[x][t]) to warpgroup 1, which forms
+// dP^T, dS^T, the dbias sums and dK += dS^T.Q. Each holds one 64 x 128
+// accumulator (64 floats a thread) and both run two products a tile. Each
+// role is its own instantiation, so that ptxas sees one wgmma sequence.
+template <int D, int WG>
+__device__ __forceinline__ void dkdv_split(const DkdvParams& p, const DkdvCtx& c, int tid) {
+  using C = Cfg<D>;
+  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t4 = lane & 3;
+  const int kr0 = c.k0 + warp * 16 + g;  // this thread's key rows: kr0, kr0 + 8
+  const float kb0 = key_bias(p, c.b, kr0), kb1 = key_bias(p, c.b, kr0 + 8);
+
+  float acc[D / 2];  // dV (warpgroup 0) or dK (warpgroup 1)
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  float db0 = 0.f, db1 = 0.f;
+  mbar_wait(c.bar + 16 * C::STAGES, 0);  // K and V are in
+  const uint64_t res_a = sw128_desc(WG == 0 ? c.sK : c.sV, 0);
+  if constexpr (WG == 1) pair_arrive(BAR_P_FREE);  // the P^T buffer starts free
+
+#pragma unroll 1
+  for (int i = 0; i < c.n_tiles; ++i) {
+    const int s = i % C::STAGES, t0 = (c.qt_begin + i) * C::BQ;
+    mbar_wait(c.bar + 8 * s, (i / C::STAGES) & 1);
+    if (!p.causal || c.k0 <= min(t0 + C::BQ, p.Sq) - 1 + c.shift) {
+      const uint32_t sq = c.sRing + s * 2 * C::QD_TILE, sdo = sq + C::QD_TILE;
+      auto tile = [&](auto n) {
+        constexpr int N = decltype(n)::value, NK = (N + 15) / 16;
+        float sc[N / 2];
+        __syncwarp();
+        wg_fence();
+        // S^T = K.Q^T (warpgroup 0) or dP^T = V.dO^T (warpgroup 1)
+        rows_dot_tile<D, N>(sc, res_a, sw128_desc(WG == 0 ? sq : sdo, 0), C::KRES_PANEL);
+        wg_commit();
+        wg_wait<0>();
+        reg_fence(sc);
+        uint32_t f[NK][4];
+        if constexpr (WG == 0) {
+          const bool edge = t0 + N > p.Sq || c.k0 + 64 > c.kend ||
+                            (p.causal && c.k0 + 63 > t0 + c.shift);
+          probs_t<N>(sc, c.lse_s + s * C::BQ, kb0, kb1, p.scale_log2, edge, kr0, t0, t4, p.Sq,
+                     c.kend, p.causal, c.shift);
+          to_frags<N>(f, sc);
+          __syncwarp();
+          wg_fence();
+          reg_fence(acc);
+          const uint64_t ddo_mn = sw128_desc(sdo, C::QD_PANEL);
+#pragma unroll
+          for (int ks = 0; ks < NK; ++ks)  // dV += P^T.dO
+            wgmma_rs<D>(acc, f[ks], ddo_mn + ((ks * 2048) >> 4));
+          wg_commit();
+          pair_sync(BAR_P_FREE);  // warpgroup 1 has read the last P^T
+#pragma unroll
+          for (int x = 0; x < N / 2; ++x) c.px[x * 128 + tid] = sc[x];
+          pair_arrive(BAR_P_READY);
+        } else {
+          pair_sync(BAR_P_READY);
+          const float* px = c.px + tid;  // sc: dP^T -> dS^T
+          grads_t<N>(sc, [&](int x) { return px[x * 128]; }, c.rs_s + s * C::BQ, t4, db0, db1);
+          pair_arrive(BAR_P_FREE);
+          to_frags<N>(f, sc);
+          __syncwarp();
+          wg_fence();
+          reg_fence(acc);
+          const uint64_t dq_mn = sw128_desc(sq, C::QD_PANEL);
+#pragma unroll
+          for (int ks = 0; ks < NK; ++ks)  // dK += dS^T.Q
+            wgmma_rs<D>(acc, f[ks], dq_mn + ((ks * 2048) >> 4));
+          wg_commit();
+        }
+        wg_wait<0>();
+        reg_fence(acc);
+        reg_fence(f);
+      };
+      with_width(p.Sq - t0, tile);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(c.bar + 8 * (C::STAGES + s));
+  }
+  if constexpr (WG == 0) pair_sync(BAR_P_FREE);  // pairs warpgroup 1's last arrival
+
+  // every product is done before either warpgroup overwrites K or V: dK
+  // leaves through the K rows, dV through the V rows
+  pair_sync(BAR_PRODUCTS);
+  unsigned char* stage = c.gbase + (WG == 0 ? C::KRES_TILE : 0);
+  stage_rows<D>(stage, acc, WG == 0 ? 1.f : p.scale, C::KRES_PANEL, warp, g, t4);
+  wg_sync(1 + WG);
+  const size_t koff = (size_t)c.bh * p.Sk * D;
+  copy_out<D>((WG == 0 ? p.dv : p.dk) + koff, stage, C::KRES_PANEL, c.k0, p.Sk, tid);
+  if constexpr (WG == 1) write_dbias(p, c.bh, kr0, t4, db0, db1);
+}
+
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_mma_bwd_dkdv_kernel(const __grid_constant__ DkdvParams p) {
+  using C = Cfg<D>;
+  constexpr int CH = D / 8;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+
+  const int bh = blockIdx.x, b = bh / p.H;
+  const int k0 = blockIdx.y * C::KEYS;
+  const int shift = p.Sk - p.Sq;
+  int kend = p.Sk;
+  if (p.kv_len != nullptr) kend = min(kend, max(p.kv_len[b], 0));
+  if (k0 >= kend) {  // no query sees a key of this block: zeros
+    const size_t koff = (size_t)bh * p.Sk * D;
+    for (int c = threadIdx.x; c < C::KEYS * CH; c += THREADS) {
+      const int r = c / CH, col = (c % CH) * 8;
+      if (k0 + r < p.Sk) {
+        const size_t at = koff + (size_t)(k0 + r) * D + col;
+        *reinterpret_cast<uint4*>(p.dk + at) = make_uint4(0, 0, 0, 0);
+        *reinterpret_cast<uint4*>(p.dv + at) = make_uint4(0, 0, 0, 0);
+      }
+    }
+    if (p.dbias_part != nullptr && threadIdx.x < C::KEYS && k0 + (int)threadIdx.x < p.Sk)
+      p.dbias_part[(size_t)bh * p.Sk + k0 + threadIdx.x] = 0.f;
+    return;
+  }
+
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* gbase = smem_raw + (base - raw);
+  const uint32_t sK = base, sV = base + C::KRES_TILE, sRing = base + C::KV_RING;
+  float* lse_s = reinterpret_cast<float*>(gbase + C::KV_LSE);  // [STAGES][BQ]
+  float* rs_s = reinterpret_cast<float*>(gbase + C::KV_RS);    // [STAGES][BQ]
+  const uint32_t bar = base + C::KV_BAR;  // full[STAGES], empty[STAGES], resident
+  const uint32_t resident = bar + 16 * C::STAGES;
+
+  const int q_begin = p.causal ? max(k0 - shift, 0) : 0;  // < Sq, as k0 < kend <= Sk
+  const int qt_begin = q_begin / C::BQ;
+  const int n_tiles = (p.Sq + C::BQ - 1) / C::BQ - qt_begin;
+  // consumer warpgroups with a key before kend (SPLIT: both share the keys)
+  const int n_live = C::SPLIT || k0 + 64 < kend ? 2 : 1;
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < C::STAGES; ++s) {
+      mbar_init(bar + 8 * s, 33);
+      mbar_init(bar + 8 * (C::STAGES + s), 4 * n_live);
+    }
+    mbar_init(resident, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wgi = __shfl_sync(0xffffffffu, (int)threadIdx.x >> 7, 0);
+  if (wgi == 0) {  // producer warpgroup: its first warp loads
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(PRODUCER_REGS));
+    const int lane = threadIdx.x;
+    if (lane < 32) {
+      if (lane == 0) {
+        mbar_expect_tx(resident, 2 * C::KRES_TILE);
+        for (int w = 0; w < C::KEYS / 64; ++w)
+          for (int pp = 0; pp < C::NP; ++pp) {
+            const uint32_t off = pp * C::KRES_PANEL + w * 64 * 128;
+            tma_3d(sK + off, &p.k, resident, pp * PANEL, k0 + 64 * w, bh);
+            tma_3d(sV + off, &p.v, resident, pp * PANEL, k0 + 64 * w, bh);
+          }
+      }
+      for (int i = 0; i < n_tiles; ++i) {
+        const int s = i % C::STAGES, t0 = (qt_begin + i) * C::BQ;
+        if (i >= C::STAGES) mbar_wait(bar + 8 * (C::STAGES + s), ((i / C::STAGES) - 1) & 1);
+        const uint32_t full = bar + 8 * s;
+        if (lane == 0) {
+          mbar_expect_tx(full, 2 * C::QD_TILE);
+          const uint32_t sq = sRing + s * 2 * C::QD_TILE, sdo = sq + C::QD_TILE;
+          for (int pp = 0; pp < C::NP; ++pp) {
+            tma_3d(sq + pp * C::QD_PANEL, &p.q, full, pp * PANEL, t0, bh);
+            tma_3d(sdo + pp * C::QD_PANEL, &p.dout, full, pp * PANEL, t0, bh);
+          }
+        }
+        for (int c = lane; c < C::BQ; c += 32) {  // queries past Sq are masked: zeros
+          const bool ok = t0 + c < p.Sq;
+          const size_t at = ok ? (size_t)bh * p.Sq + t0 + c : 0;
+          cp_async4(smem_u32(lse_s + s * C::BQ + c), p.lse + at, ok);
+          cp_async4(smem_u32(rs_s + s * C::BQ + c), p.rowsum + at, ok);
+        }
+        cp_async_arrive(full);
+      }
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(CONSUMER_REGS));
+  const DkdvCtx c{bh, b, k0, kend, shift, qt_begin, n_tiles, sK, sV, sRing, bar, lse_s, rs_s,
+                  reinterpret_cast<float*>(gbase + C::KV_P), gbase};
+  if constexpr (C::SPLIT) {
+    if (wgi == 1)
+      dkdv_split<D, 0>(p, c, threadIdx.x & 127);
+    else
+      dkdv_split<D, 1>(p, c, threadIdx.x & 127);
+  } else
+    dkdv_rows<D>(p, c, wgi - 1, threadIdx.x & 127);
+}
+
+// ---- host: tensor maps and launches
+
+using EncodeTiled = decltype(&cuTensorMapEncodeTiled);
+
+EncodeTiled encoder() {
+  static EncodeTiled fn = [] {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr,
+                                                             12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(ptr) : nullptr;
+  }();
+  return fn;
+}
+
+constexpr int ENCODE_FAILED = 10000;  // + the CUresult of a map that did not encode
+
+// [BH, S, D] bf16 in boxes of [1, rows, 64], 128-byte swizzle, rows past S
+// zero-filled
+int map_rows(EncodeTiled enc, CUtensorMap* m, const void* ptr, int BH, int S, int D, int rows) {
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)BH};
+  const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)S * D * 2};
+  const cuuint32_t box[3] = {PANEL, (cuuint32_t)rows, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUresult r = enc(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
+                         strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : ENCODE_FAILED + (int)r;
+}
+
+// both passes' maps and scalars; returns 0 or ENCODE_FAILED + a CUresult
+template <int D>
+int encode(DqParams* a, DkdvParams* c, const void* q, const void* k, const void* v,
+           const void* out, const void* dout, int BH, int Sq, int Sk) {
+  using C = Cfg<D>;
+  const EncodeTiled enc = encoder();
+  if (enc == nullptr) return ENCODE_FAILED + (int)CUDA_ERROR_NOT_FOUND;
+  int err = map_rows(enc, &a->q, q, BH, Sq, D, 64);
+  err = err ? err : map_rows(enc, &a->dout, dout, BH, Sq, D, 64);
+  err = err ? err : map_rows(enc, &a->out, out, BH, Sq, D, 64);
+  err = err ? err : map_rows(enc, &a->k, k, BH, Sk, D, C::BC);
+  err = err ? err : map_rows(enc, &a->v, v, BH, Sk, D, C::BC);
+  err = err ? err : map_rows(enc, &c->k, k, BH, Sk, D, 64);  // C::KEYS / 64 boxes a block
+  err = err ? err : map_rows(enc, &c->v, v, BH, Sk, D, 64);
+  err = err ? err : map_rows(enc, &c->q, q, BH, Sq, D, C::BQ);
+  return err ? err : map_rows(enc, &c->dout, dout, BH, Sq, D, C::BQ);
+}
+
+template <int D>
+cudaError_t prepare() {  // shared memory above 48 KB, once an instantiation
+  static const cudaError_t err = [] {
+    cudaError_t e = cudaFuncSetAttribute(flash_mma_bwd_dq_kernel<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         Cfg<D>::DQ_BYTES);
+    if (e != cudaSuccess) return e;
+    return cudaFuncSetAttribute(flash_mma_bwd_dkdv_kernel<D>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg<D>::DKDV_BYTES);
+  }();
+  return err;
 }
 
 template <int D>
@@ -522,38 +1140,77 @@ int launch(const void* q, const void* k, const void* v, const void* out, const v
            const float* lse, const float* bias, const int* kv_len, void* dq, void* dk,
            void* dv, float* dbias_part, float* rowsum, int B, int H, int Sq, int Sk,
            int causal, cudaStream_t stream) {
-  using bf = __nv_bfloat16;
-  const int n_q_tiles = (Sq + BQ - 1) / BQ, n_k_tiles = (Sk + BK - 1) / BK;
-  if (n_q_tiles > 65535 || n_k_tiles > 65535) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(flash_mma_bwd_dq_kernel<D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)Layout<D>::DQ_BYTES);
+  using C = Cfg<D>;
+  const int n_q_blocks = (Sq + ROWS - 1) / ROWS, n_k_blocks = (Sk + C::KEYS - 1) / C::KEYS;
+  if (n_q_blocks > 65535 || n_k_blocks > 65535 || (long long)B * H * Sq > INT32_MAX ||
+      (long long)B * H > INT32_MAX)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = prepare<D>();
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(flash_mma_bwd_dkdv_kernel<D>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)Layout<D>::DKDV_BYTES);
-  if (err != cudaSuccess) return (int)err;
+  DqParams a = {};
+  DkdvParams c = {};
+  const int enc = encode<D>(&a, &c, q, k, v, out, dout, B * H, Sq, Sk);
+  if (enc != 0) return enc;
   const float scale = 1.0f / sqrtf((float)D), scale_log2 = LOG2E * scale;
-  flash_mma_bwd_dq_kernel<D><<<dim3(B * H, n_q_tiles), THREADS, Layout<D>::DQ_BYTES, stream>>>(
-      static_cast<const bf*>(q), static_cast<const bf*>(k), static_cast<const bf*>(v),
-      static_cast<const bf*>(out), static_cast<const bf*>(dout), lse, bias, kv_len,
-      static_cast<bf*>(dq), rowsum, H, Sq, Sk, causal, scale_log2, scale);
+  a.bias = bias;
+  a.lse = lse;
+  a.kv_len = kv_len;
+  a.dq = static_cast<bf16*>(dq);
+  a.rowsum = rowsum;
+  a.H = H, a.Sq = Sq, a.Sk = Sk, a.causal = causal;
+  a.scale_log2 = scale_log2, a.scale = scale;
+  c.lse = lse;
+  c.rowsum = rowsum;
+  c.bias = bias;
+  c.kv_len = kv_len;
+  c.dk = static_cast<bf16*>(dk);
+  c.dv = static_cast<bf16*>(dv);
+  c.dbias_part = dbias_part;
+  c.H = H, c.Sq = Sq, c.Sk = Sk, c.causal = causal;
+  c.scale_log2 = scale_log2, c.scale = scale;
+  flash_mma_bwd_dq_kernel<D><<<dim3(B * H, n_q_blocks), THREADS, C::DQ_BYTES, stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  flash_mma_bwd_dkdv_kernel<D>
-      <<<dim3(B * H, n_k_tiles), THREADS, Layout<D>::DKDV_BYTES, stream>>>(
-          static_cast<const bf*>(q), static_cast<const bf*>(k), static_cast<const bf*>(v),
-          static_cast<const bf*>(dout), lse, rowsum, bias, kv_len, static_cast<bf*>(dk),
-          static_cast<bf*>(dv), dbias_part, H, Sq, Sk, causal, scale_log2, scale);
+  flash_mma_bwd_dkdv_kernel<D><<<dim3(B * H, n_k_blocks), THREADS, C::DKDV_BYTES, stream>>>(c);
   return (int)cudaGetLastError();
+}
+
+template <int D>
+int occupancy(int pass, int* smem_bytes, int* blocks_per_sm) {
+  const cudaError_t err = prepare<D>();
+  if (err != cudaSuccess) return (int)err;
+  if (pass == 0) {
+    *smem_bytes = Cfg<D>::DQ_BYTES;
+    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks_per_sm, flash_mma_bwd_dq_kernel<D>, THREADS, Cfg<D>::DQ_BYTES);
+  }
+  *smem_bytes = Cfg<D>::DKDV_BYTES;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks_per_sm, flash_mma_bwd_dkdv_kernel<D>, THREADS, Cfg<D>::DKDV_BYTES);
+}
+
+template <int D>
+int encode_ns(int B, int H, int Sq, int Sk, int reps, double* ns) {
+  // addresses are never read while encoding: any 16-byte-aligned values do
+  const char* fake = reinterpret_cast<const char*>(uintptr_t{1} << 40);
+  DqParams a = {};
+  DkdvParams c = {};
+  int err = encode<D>(&a, &c, fake, fake, fake, fake, fake, B * H, Sq, Sk);
+  const auto t0 = std::chrono::steady_clock::now();
+  for (int i = 0; i < reps && err == 0; ++i)
+    err = encode<D>(&a, &c, fake, fake, fake, fake, fake, B * H, Sq, Sk);
+  const auto t1 = std::chrono::steady_clock::now();
+  *ns = std::chrono::duration<double, std::nano>(t1 - t0).count() / (reps > 0 ? reps : 1);
+  return err;
 }
 
 }  // namespace
 
 // bf16 only; D 64 or 128. bias / kv_len / dbias_part may be null; rowsum is
 // [B, H, Sq] f32 scratch, written by the dQ pass and read by the dK/dV pass.
-// Launches both passes; returns the first cudaGetLastError() that is not 0
-// (0 on success).
+// Launches both passes; returns the first cudaGetLastError() that is not 0,
+// or ENCODE_FAILED (10000) + the CUresult of a tensor map that did not
+// encode (0 on success).
 extern "C" int flash_attention_mma_bwd(const void* q, const void* k, const void* v,
                                        const void* out, const void* dout, const float* lse,
                                        const float* bias, const int* kv_len, void* dq,
@@ -567,6 +1224,31 @@ extern "C" int flash_attention_mma_bwd(const void* q, const void* k, const void*
                                rowsum, B, H, Sq, Sk, causal, s);
     case 128: return launch<128>(q, k, v, out, dout, lse, bias, kv_len, dq, dk, dv,
                                  dbias_part, rowsum, B, H, Sq, Sk, causal, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The dynamic shared memory of one pass (0: dQ, 1: dK/dV) at head dim D and
+// the blocks of it an SM holds at once
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor). Returns the CUDA error (0
+// on success).
+extern "C" int flash_attention_mma_bwd_occupancy(int D, int pass, int* smem_bytes,
+                                                 int* blocks_per_sm) {
+  switch (D) {
+    case 64: return occupancy<64>(pass, smem_bytes, blocks_per_sm);
+    case 128: return occupancy<128>(pass, smem_bytes, blocks_per_sm);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The host's time to encode one call's tensor maps (both passes) at the
+// shape (B, H, Sq, Sk, D), in ns averaged over `reps` encodings, into *ns.
+// Returns 0 or ENCODE_FAILED + the CUresult.
+extern "C" int flash_attention_mma_bwd_encode_ns(int B, int H, int Sq, int Sk, int D, int reps,
+                                                 double* ns) {
+  switch (D) {
+    case 64: return encode_ns<64>(B, H, Sq, Sk, reps, ns);
+    case 128: return encode_ns<128>(B, H, Sq, Sk, reps, ns);
     default: return (int)cudaErrorInvalidValue;
   }
 }

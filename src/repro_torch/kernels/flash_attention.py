@@ -19,9 +19,11 @@ call goes through ``_FlashAttention``, a ``torch.autograd.Function`` whose
 forward is the same kernel (which then also writes each row's log-sum-exp)
 and whose backward is ``backward``, a dispatcher like the forward's: on a
 CUDA tensor the backward kernel of the forward's route,
-``csrc/flash_attention_mma_bwd.cu`` (tensor cores, bf16 at D 64/128) or
-``csrc/flash_attention_bwd.cu`` (3xTF32 tensor cores, the rest); on a CPU
-tensor the plain ``ref.flash_attention_bwd_ref``. ``launches_bwd`` counts
+``csrc/flash_attention_mma_bwd.cu`` (bf16 at D 64/128: ``wgmma`` for every
+product, TMA loads from a producer warp into an ``mbarrier`` ring, two
+consumer warpgroups of 64 rows) or ``csrc/flash_attention_bwd.cu`` (3xTF32
+tensor cores, the rest); on a CPU tensor the plain
+``ref.flash_attention_bwd_ref``. ``launches_bwd`` counts
 backward calls on both kernels (each call is two launches: the dQ pass,
 then the dK/dV pass), ``launches_bwd_mma`` those on the tensor-core one.
 The reference has no backward kernel: its models train through the jnp

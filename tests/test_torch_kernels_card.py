@@ -650,3 +650,91 @@ def test_decode_attention_raises_under_grad_on_card(cuda):
     assert decode_mod.launches == before
     with torch.no_grad():
         _check_decode(q.detach(), kv, kv, lengths)
+
+
+# (Sq, Sk) at the wgmma backward's edges (64-row warpgroups, 128-row blocks,
+# streamed tiles of 64 or 32 trimmed to 8, 16 or 32): each of 1, 8, 15, 16,
+# 17, 63, 64, 65, 127, 128, 129 and 577 as Sq and as Sk, Sq < Sk and Sq > Sk
+MMA_EDGES = ((1, 577), (577, 1), (8, 15), (15, 8), (16, 17), (17, 16), (63, 65), (65, 63),
+             (64, 64), (127, 129), (129, 127), (128, 128), (577, 577))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sq,sk", MMA_EDGES, ids=[f"{a}x{b}" for a, b in MMA_EDGES])
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_mma_backward_at_tile_edges_on_card(cuda, d, sq, sk):
+    """The tensor-core backward (``flash_attention_mma_bwd``) at tile-edge
+    lengths against the plain backward on the same inputs, within
+    BWD_BF16_OF_MAX of max|g|: plain, the bias with -inf pads, causal, a
+    kv_len that splits a key tile, a kv_len-0 member (all its gradients 0,
+    keys past a kv_len exactly 0 in dK and dV), and all together. With one
+    key (Sk = 1) the softmax is constant, so dQ, dK and dbias are 0 up to
+    rounding: their limit is taken of max|dV| there."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen, q, k, v, bias = _flash_case(cuda, 2, 2, sq, sk, d, torch.bfloat16, seed=sq + 5 * sk + d)
+    split = torch.tensor([max(1, sk - 5), (sk + 1) // 2], dtype=torch.int32, device=cuda)
+    empty = torch.tensor([0, (sk + 1) // 2], dtype=torch.int32, device=cuda)
+    dout = torch.randn((2, 2, sq, d), generator=gen, device=cuda).to(torch.bfloat16)
+    assert flash_mod.kernel_for(torch.bfloat16, d) == flash_mod.MMA
+    for kw in ({}, {"bias": bias}, {"causal": True}, {"kv_len": split}, {"kv_len": empty},
+               {"bias": bias, "kv_len": split, "causal": True}):
+        kw = {"causal": False, **kw}
+        before = flash_mod.launches_bwd_mma
+        out, got = _kernel_backward(q, k, v, dout, kw)
+        assert flash_mod.launches_bwd_mma == before + 1
+        exp = ref.flash_attention_bwd_ref(q, k, v, out, dout, need_bias="bias" in kw, **kw)
+        dv_scale = float(exp[2].float().abs().max())
+        for name, g, e in zip(("dq", "dk", "dv", "dbias"), got, exp):
+            if e is None:
+                assert g is None, name
+                continue
+            assert g.shape == e.shape and torch.isfinite(g).all(), (name, kw)
+            scale = dv_scale if sk == 1 and name != "dv" else float(e.float().abs().max())
+            torch.testing.assert_close(g.float(), e.float(), rtol=0,
+                                       atol=BWD_BF16_OF_MAX * scale,
+                                       msg=lambda m, name=name: f"{name} {sorted(kw)}: {m}")
+        pads = min(3, sk - 1)  # _flash_case's -inf pads
+        if "bias" in kw and pads:
+            assert torch.all(got[3][:, sk - pads:] == 0)
+        if "kv_len" in kw:
+            for member, n in enumerate(kw["kv_len"].tolist()):
+                assert torch.all(got[1][member, :, n:] == 0)
+                assert torch.all(got[2][member, :, n:] == 0)
+                if n == 0:
+                    assert all(float(g[member].abs().max()) == 0 for g in got[:3])
+
+
+@pytest.mark.gpu
+def test_flash_mma_backward_is_deterministic_at_the_train_call_on_card(cuda):
+    """At vit-l16 ``cls_384``'s [32, 16, 577, 64] (2560 blocks a pass, many
+    waves on 132 SMs) two runs of the tensor-core backward give the same
+    bits: no atomics, every row's sums in a fixed order."""
+    gen = torch.Generator(device=cuda).manual_seed(26)
+    q, k, v, dout = (torch.randn((32, 16, 577, 64), generator=gen, device=cuda)
+                     .to(torch.bfloat16) for _ in range(4))
+    kw = {"causal": False}
+    _, first = _kernel_backward(q, k, v, dout, kw)
+    _, second = _kernel_backward(q, k, v, dout, kw)
+    for a, b in zip(first[:3], second[:3]):
+        assert torch.equal(a, b)
+    assert all(float(g.abs().max()) > 0 for g in first[:3])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_mma_backward_copies_an_offset_dout_on_card(cuda, d):
+    """The gradient autograd hands over may be an offset view: the wrapper
+    copies a dout off a 16-byte boundary (TMA's alignment) and the result is
+    the contiguous one's, bit for bit."""
+    gen, q, k, v, bias = _flash_case(cuda, 2, 3, 130, 150, d, torch.bfloat16, seed=27)
+    n = 2 * 3 * 130 * d
+    flat = torch.randn(n + 8, generator=gen, device=cuda).to(torch.bfloat16)
+    dout = flat[3:3 + n].view(2, 3, 130, d)
+    assert dout.is_contiguous() and dout.data_ptr() % 16 != 0
+    out, lse = flash_mod._forward(q, k, v, bias, None, True, True)
+    got = flash_mod.backward(q, k, v, out, dout, bias=bias, causal=True, need_bias=True, lse=lse)
+    aligned = flash_mod.backward(q, k, v, out, dout.clone(), bias=bias, causal=True,
+                                 need_bias=True, lse=lse)
+    torch.cuda.synchronize()
+    for g, a in zip(got, aligned):
+        assert torch.equal(g, a)
