@@ -13,9 +13,9 @@ each failing the run on any failed check:
             and prints each kernel's ptxas registers, spills and shared memory;
             the tensor-core kernels and tome_scores must not spill (the
             tensor-core flash backward not at D=64: its D=128 spill is
-            printed), nor the 3xTF32 flash kernels at D <= 64, whose dynamic
-            shared memory and blocks per SM are printed for each
-            instantiation;
+            printed), nor the 3xTF32 flash kernels at D <= 64, nor the f32
+            decode kernel at any instantiation; the dynamic shared memory and
+            blocks per SM of those three are printed for each instantiation;
 3. kernels: each kernel against its plain PyTorch version on the card at the
             main paths' shapes, and timed beside its plain version, one
             library call computing the same function, and its bound. Flash
@@ -39,11 +39,10 @@ each failing the run on any failed check:
             [4,2048,64], [4,1571,64] against [4,1570,64], [4,1022,64]
             against [4,1022,64]). decode_attention has
             two kernels too, chosen by dtype: the tensor-core one (bf16) and
-            the CUDA-core one (f32), both timed at the LM decode shape and two
-            longer caches, the tensor-core one also at the MoE decode shapes
-            (group 8 at D=128, group 3 at D=64), the CUDA-core one also in bf16 beside the
-            tensor-core one, and the tensor-core one also with the L2 flushed
-            before each call. tome_scores and decode_attention are timed with
+            the CUDA-core one (f32), both timed at the LM decode shape, the
+            MoE decode shapes (group 8 at D=128, group 3 at D=64) and two
+            longer caches, and at the LM decode shape also with the L2
+            flushed before each call. tome_scores and decode_attention are timed with
             the calls queued behind a sleep kernel (the card's time per call,
             the host's per-call overhead hidden) and back to back as queued
             by the host;
@@ -282,6 +281,7 @@ def main() -> int:
               + (": " + "; ".join(line.split(":")[0] for line in spills) if spills else ""))
     flash_mma_bwd_occupancy()
     flash_tf32_occupancy()
+    decode_occupancy()
 
     from repro_torch.runtime.device import parity_numerics
     parity_numerics()  # f32 plain versions and f32 phases must not use TF32
@@ -400,6 +400,34 @@ def flash_tf32_occupancy() -> None:
                   f"{name} spills: {line}")
 
 
+def decode_occupancy() -> None:
+    """The f32 decode kernel (``decode_attention``): each instantiation's
+    ptxas line (``ptxas_summary``: the split pass at D 64/128 and 1 to 4
+    heads a lane, and the combine at D 64/128), and the split pass's dynamic
+    shared memory and blocks per SM from the library's occupancy entry
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``); none may spill or
+    keep an array in local memory (a stack frame)."""
+    import ctypes
+    from repro_torch.kernels import _build
+    lib = _build.load("decode_attention")
+    lines = ptxas_summary(_build.build_log("decode_attention"))
+    check(len(lines) == 10, f"ptxas printed {len(lines)} lines for decode_attention")
+    frames = re.findall(r"(\d+) bytes stack frame", _build.build_log("decode_attention"))
+    check(len(frames) == 10 and not any(int(f) for f in frames),
+          f"decode_attention keeps local memory: stack frames {frames}")
+    for line in lines:
+        check(" 0 B spill stores, 0 B spill loads" in line, f"decode_attention spills: {line}")
+        m = re.match(r"decode_partial_kernel<(\d+),(\d+)>", line)
+        if m is None:
+            continue
+        smem, blocks = ctypes.c_int(), ctypes.c_int()
+        err = lib.decode_attention_occupancy(int(m.group(1)), int(m.group(2)),
+                                             ctypes.byref(smem), ctypes.byref(blocks))
+        check(err == 0, f"decode_attention_occupancy{m.groups()}: cudaError {err}")
+        print(f"[build] decode_attention: decode_partial_kernel<{m.group(1)},{m.group(2)}> "
+              f"{smem.value} B dynamic shared memory, {blocks.value} blocks/SM")
+
+
 def ptxas_summary(log: str) -> list[str]:
     """One line per kernel instantiation of nvcc's -Xptxas -v output:
     ``name<type,D>: registers, spill stores/loads, shared memory``."""
@@ -488,25 +516,6 @@ def cuda_core_flash(torch, flash_mod, q, k, v, bias, causal):
         None, out.data_ptr(), None, b, h, sq, k.shape[2], d, 1, int(causal),
         torch.cuda.current_stream().cuda_stream)
     check(err == 0, f"CUDA-core flash kernel launch failed: cudaError {err}")
-    return out
-
-
-def cuda_core_decode(torch, decode_mod, q, k, v, lengths):
-    """The CUDA-core decode kernel on a bf16 call that ``kernel_for`` routes
-    to the tensor-core one, with its own split count: its C entry called
-    directly, for a side-by-side time in one run (not counted; never on a
-    path)."""
-    b, hq, d = q.shape
-    s, hkv = k.shape[1], k.shape[2]
-    nsplit = decode_mod.n_splits(b, hq, hkv, s, decode_mod.CUDA_CORE)
-    rows = b * hq * nsplit
-    part = torch.empty(rows * (d + 2), dtype=torch.float32, device=q.device)
-    out = torch.empty_like(q)
-    err = decode_mod._fn(decode_mod.CUDA_CORE)(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(), part.data_ptr(),
-        part.data_ptr() + rows * d * 4, part.data_ptr() + rows * (d + 1) * 4, out.data_ptr(),
-        b, hq, hkv, s, d, nsplit, 1, torch.cuda.current_stream().cuda_stream)
-    check(err == 0, f"CUDA-core decode kernel launch failed: cudaError {err}")
     return out
 
 
@@ -798,11 +807,10 @@ def decode_kernel_phase(torch, bench: list[dict]) -> list[dict]:
     ragged inside a tile, full; group 12 as starcoder2-3b, 2 as internlm2, 8
     as qwen3-moe and 3 as granite-moe; D 64 and 128): bf16 on the
     tensor-core kernel, f32 on the CUDA-core one. Then each timed at
-    starcoder2-3b's last decode step and at two longer caches, and the
-    tensor-core one at the MoE paths' last steps, beside the plain version
-    and SDPA with a length mask; the tensor-core one also beside the
-    CUDA-core kernel on the same bf16 call and, at starcoder2-3b's shape,
-    with the L2 flushed before each call."""
+    starcoder2-3b's last decode step, the MoE paths' last steps and two
+    longer caches, beside the plain version and SDPA with a length mask,
+    and at starcoder2-3b's shape also with the L2 flushed before each call
+    (kernel_bench's rows where it timed the same call)."""
     import torch.nn.functional as F
     from repro_torch.kernels import decode_attention as decode_mod
     from repro_torch.kernels import ref
@@ -844,12 +852,12 @@ def decode_kernel_phase(torch, bench: list[dict]) -> list[dict]:
 
     timings = {decode_mod.MMA: [], decode_mod.CUDA_CORE: []}
     both = (torch.bfloat16, torch.float32)
-    # starcoder2-3b's path and two longer caches; then the MoE paths, bf16:
-    # qwen3 (group 8) after 64 steps, granite (group 3) after 16
+    # starcoder2-3b's path and two longer caches; then the MoE paths: qwen3
+    # (group 8) after 64 steps, granite (group 3) after 16
     for b, s, n, hq, hkv, dd, dtypes in (
             (8, 2048, 1088, 24, 2, 128, both), (8, 8192, 8192, 24, 2, 128, both),
             (1, 32768, 32768, 24, 2, 128, both),
-            (8, 2048, 1088, 32, 4, 128, both[:1]), (8, 2048, 1040, 24, 8, 64, both[:1])):
+            (8, 2048, 1088, 32, 4, 128, both), (8, 2048, 1040, 24, 8, 64, both)):
         for dtype in dtypes:
             q, k, v = inputs(b, hq, hkv, s, dd, dtype)
             lens = torch.full((b,), n, dtype=torch.int32, device=dev)
@@ -879,16 +887,10 @@ def decode_kernel_phase(torch, bench: list[dict]) -> list[dict]:
                        device_us=device_us(torch, wrapper))
             row["bound_ms"], row["bound_by"] = case.bound()
             extra = ""
-            if kernel == decode_mod.MMA:  # the CUDA-core kernel on the same bf16 call
-                row["cuda_core_ms"] = time_ms(lambda: cuda_core_decode(
-                    torch, decode_mod, q, k, v, lens), queued=True)
-                extra = f", CUDA-core kernel {row['cuda_core_ms']:.4f} ms"
-                if (s, hq, hkv) == (LM_CAPACITY, 24, 2):
-                    row["cold_l2_ms"] = time_cold_ms(wrapper)
-                    row["cuda_core_cold_l2_ms"] = time_cold_ms(lambda: cuda_core_decode(
-                        torch, decode_mod, q, k, v, lens))
-                    extra += (f"; L2 flushed before each call: kernel {row['cold_l2_ms']:.4f} "
-                              f"ms, CUDA-core kernel {row['cuda_core_cold_l2_ms']:.4f} ms")
+            if (s, hq, hkv) == (LM_CAPACITY, 24, 2):
+                row["cold_l2_ms"] = (shared["cold_l2_ms"] if shared is not None
+                                     else time_cold_ms(wrapper))
+                extra = f"; L2 flushed before each call: kernel {row['cold_l2_ms']:.4f} ms"
             print(f"[kernels] {kernel} {shape} timing, queued"
                   + (f" (kernel_bench {shared['label']})" if shared else "")
                   + f": kernel {ms:.4f} ms, plain "

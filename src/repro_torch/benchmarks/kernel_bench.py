@@ -23,7 +23,12 @@ and TMA since slice 15) at vit-l16 ``cls_384`` [32,16,577,64] and an LM
 train shape [2,24,1024,128] causal, flash_attention_bwd at the f32 train parity's [4,16,577,64] and
 at D=16 [8,4,577,16]; the plain version is ``ref.flash_attention_bwd_ref``,
 the library call SDPA's backward alone (``autograd.grad`` of a retained
-graph).
+graph). Part 4: the f32 decode kernel (``decode_attention``) at the shapes
+it is judged on: the f32 LM paths' last decode steps (starcoder2-3b group 12,
+qwen3-moe group 8, granite-moe group 3 at D=64) and two long full caches
+(B=8 over 8192 positions, B=1 over 32768). Every decode row also carries
+``cold_l2_ms``, its time with the L2 flushed before each call
+(``timing.time_cold_ms``): its path shapes' caches fit in the 50 MB L2.
 
 ``rows()`` keeps the reference's ``(name, us_per_call, derived)`` shape:
 the kernel's µs a call and its bound in µs. Without a card it refuses: no
@@ -42,7 +47,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.benchmarks import common
-from repro_torch.benchmarks.timing import PEAK_BF16, PEAK_F32, bound, time_ms
+from repro_torch.benchmarks.timing import PEAK_BF16, PEAK_F32, bound, time_cold_ms, time_ms
 from repro_torch.kernels import decode_attention as decode_mod
 from repro_torch.kernels import flash_attention as flash_mod
 from repro_torch.kernels import ops, ref
@@ -154,6 +159,12 @@ CASES = (
     Case("vit_l16_f32_parity_bwd_f32", "flash_bwd", (4, 16, 577, 64), torch.float32),
     # the smoke ViTs' head dim, D=16, at 577 tokens
     Case("d16_bwd_f32", "flash_bwd", (8, 4, 577, 16), torch.float32),
+    # part 4: the f32 decode kernel at the f32 paths' last steps and two long caches
+    Case("starcoder2_decode_f32", "decode", (8, 24, 2, 2048, 128), torch.float32, length=1088),
+    Case("qwen3_decode_f32", "decode", (8, 32, 4, 2048, 128), torch.float32, length=1088),
+    Case("granite_decode_f32", "decode", (8, 24, 8, 2048, 64), torch.float32, length=1040),
+    Case("long_cache_b8_f32", "decode", (8, 24, 2, 8192, 128), torch.float32, length=8192),
+    Case("long_cache_b1_f32", "decode", (1, 24, 2, 32768, 128), torch.float32, length=32768),
 )
 
 
@@ -281,6 +292,7 @@ def measure(cases=CASES) -> list[dict]:
         plain_ms = time_ms(plain, iters, queued=True)
         library_ms = time_ms(library, iters, queued=True)
         bound_ms, bound_by = case.bound()
+        extra = {"cold_l2_ms": time_cold_ms(kernel)} if case.family == "decode" else {}
         out.append({"name": f"kernel/{case.kernel()}/{case.label}", "label": case.label,
                     "kernel": case.kernel(),
                     "shape": list(case.shape), "dtype": str(case.dtype).removeprefix("torch."),
@@ -288,7 +300,7 @@ def measure(cases=CASES) -> list[dict]:
                     "max_abs_err": err, "tol": tol, "timing": "queued",
                     "ms": ms, "plain_ms": plain_ms, "library": library_name,
                     "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-                    "flops": case.flops(), "bytes": case.nbytes()})
+                    "flops": case.flops(), "bytes": case.nbytes(), **extra})
     return out
 
 
@@ -303,7 +315,8 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     records = measure()
     for r in records:
-        print(f"{r['name']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+        cold = f", L2 flushed {r['cold_l2_ms']:.4f} ms" if "cold_l2_ms" in r else ""
+        print(f"{r['name']}: kernel {r['ms']:.4f} ms{cold}, plain {r['plain_ms']:.4f} ms, "
               f"library {r['library_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms "
               f"({r['bound_by']}), max_abs_err {r['max_abs_err']:.3e}")
     common.write_json(args.out, {"benchmark": "kernel_bench",

@@ -6,14 +6,16 @@ head dim), ``kernel_for``:
 
 - ``csrc/decode_attention_mma.cu``: bf16 tensor cores (``mma.sync``) with a
   ``cp.async`` K/V ring, bf16 at D 64 and 128 (every LM decode step);
-- ``csrc/decode_attention.cu``: CUDA-core f32 math, f32 at D 64 and 128 (the
-  f32 parity paths). f32 stays off the tensor cores, where it would be TF32.
+- ``csrc/decode_attention.cu``: CUDA-core f32 math with a ``cp.async`` K/V
+  ring, f32 at D 64 and 128 (the f32 parity paths). f32 stays off the
+  tensor cores, where it would be TF32.
 
-Both split the cache axis across blocks and combine the partials in a second
-pass. A CPU tensor goes to the plain version in ``ref.py``; a CUDA tensor
-launches a kernel or raises, never falls back. ``launches`` counts launches
-of both kernels (one per call: the split pass and its combine pass),
-``launches_mma`` those of the tensor-core kernel.
+Both split the cache axis across blocks, spread the valid tiles evenly over
+the splits, and combine the partials in a second pass. A CPU tensor goes to
+the plain version in ``ref.py``; a CUDA tensor launches a kernel or raises,
+never falls back. ``launches`` counts launches of both kernels (one per
+call: the split pass and its combine pass), ``launches_mma`` those of the
+tensor-core kernel.
 """
 from __future__ import annotations
 
@@ -29,12 +31,13 @@ launches_mma = 0
 
 CUDA_CORE = "decode_attention"    # kernel names are their sources' names
 MMA = "decode_attention_mma"
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = (torch.float32, torch.bfloat16)
 _HEAD_DIMS = (64, 128)
-CH = 64    # cache positions per tile, as in both .cu files
-GT = 16    # query heads per block, as in both .cu files
-SMS = 132  # the H100's SMs
-MIN_TILES = 4  # tiles of capacity per split of the tensor-core kernel, at least
+CH = 64       # cache positions per tile of the tensor-core kernel, as in its .cu
+GT = 16       # query heads per block of the tensor-core kernel, as in its .cu
+CH_F32 = 32   # cache positions per tile of the CUDA-core kernel, as in its .cu
+SMS = 132     # the H100's SMs
+MIN_TILES = 4  # tiles of capacity per split, at least
 
 
 def kernel_for(dtype: torch.dtype, d: int) -> str:
@@ -51,26 +54,26 @@ def kernel_for(dtype: torch.dtype, d: int) -> str:
 @functools.cache
 def _fn(name: str):
     """The C entry ``<name>_fwd``: q, k, v, lengths, part_acc, part_m,
-    part_l, out, then B, Hq, Hkv, S, D, nsplit, the dtype code (the CUDA-core
-    kernel only; the tensor-core one is bf16 only) and the stream."""
+    part_l, out, then B, Hq, Hkv, S, D, nsplit and the stream (each kernel
+    serves one dtype)."""
     fn = getattr(_build.load(name), f"{name}_fwd")
-    n_ints = 7 if name == CUDA_CORE else 6
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * n_ints + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
 def n_splits(b: int, hq: int, hkv: int, s: int, kernel: str) -> int:
     """Splits of the cache axis, from the shapes alone (no host read of the
-    lengths). The tensor-core kernel: at least ``MIN_TILES`` tiles of
-    capacity per split, so that a block walks several tiles and overlaps
-    their loads, and no more blocks than about two per SM. The CUDA-core
-    kernel, which overlaps nothing within a block: about four blocks per SM,
-    and no more splits than tiles of capacity."""
-    blocks_per_split = b * hkv * -(-(hq // hkv) // GT)
-    tiles = -(-s // CH)
-    if kernel == CUDA_CORE:
-        return max(1, min(tiles, -(-4 * SMS // blocks_per_split)))
+    lengths): at least ``MIN_TILES`` tiles of capacity per split, so that a
+    block walks several tiles and overlaps their loads, and no more blocks
+    than about two per SM. A block serves ``GT`` query heads on the
+    tensor-core kernel and, on the CUDA-core one, 4 lane groups of 1 to 4
+    heads each (its ``heads_per_lane``), the fewest that cover the group up
+    to 16; larger groups take several head tiles."""
+    g = hq // hkv
+    heads = GT if kernel == MMA else 4 * min(4, -(-g // 4))
+    blocks_per_split = b * hkv * -(-g // heads)
+    tiles = -(-s // (CH if kernel == MMA else CH_F32))
     return max(1, min(-(-tiles // MIN_TILES), 2 * SMS // blocks_per_split))
 
 
@@ -125,12 +128,11 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     acc_ptr = part.data_ptr()  # part_acc [rows, D], then part_m [rows], part_l [rows]
     m_ptr = acc_ptr + rows * d * 4
     out = torch.empty_like(q)
-    dtype = [] if kernel == MMA else [_DTYPES[q.dtype]]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = _fn(kernel)(q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
                           acc_ptr, m_ptr, m_ptr + rows * 4, out.data_ptr(),
-                          b, hq, hkv, s, d, nsplit, *dtype, stream)
+                          b, hq, hkv, s, d, nsplit, stream)
     if err != 0:
         raise RuntimeError(f"{kernel} kernel launch failed: cudaError {err}")
     launches += 1

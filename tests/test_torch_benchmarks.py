@@ -196,14 +196,19 @@ def test_kernel_bounds_reproduce_perf_md():
     """PERF.md §6's bounds: flash_attention_mma at ViT B=8 with the bias
     0.0113 ms (bytes), tome_scores B=8 0.00127 ms (f32 operations),
     decode_attention_mma at starcoder2's decode 0.0027 ms (bytes), the flash
-    backward at the vit-l16 train call 0.1103 ms (bf16 operations)."""
+    backward at the vit-l16 train call 0.1103 ms (bf16 operations), the f32
+    decode kernel at starcoder2's f32 decode 0.0054 ms and over the full
+    8192 and 32768 caches 0.0401 and 0.0200 ms (bytes)."""
     from repro_torch.benchmarks import kernel_bench, timing
 
     cases = {c.label: c for c in kernel_bench.CASES}
     for label, want, by in (("vit_b8_bias_bf16", 0.0113, "bytes"),
                             ("vit_b8_f32", 0.00127, "operations"),
                             ("starcoder2_decode_bf16", 0.0027, "bytes"),
-                            ("vit_l16_train_bwd_bf16", 0.1103, "operations")):
+                            ("vit_l16_train_bwd_bf16", 0.1103, "operations"),
+                            ("starcoder2_decode_f32", 0.0054, "bytes"),
+                            ("long_cache_b8_f32", 0.0401, "bytes"),
+                            ("long_cache_b1_f32", 0.0200, "bytes")):
         ms, got_by = cases[label].bound()
         assert got_by == by and ms == pytest.approx(want, rel=0.01), label
     # the moved helper: 2·B·Na·Nb·D f32 operations against the bytes
@@ -213,7 +218,8 @@ def test_kernel_bounds_reproduce_perf_md():
     assert [c.kernel() for c in kernel_bench.CASES] == [
         "tome_scores", "flash_attention", "decode_attention", "flash_attention_mma",
         "flash_attention_mma", "decode_attention_mma", "flash_attention_mma_bwd",
-        "flash_attention_mma_bwd", "flash_attention_bwd", "flash_attention_bwd"]
+        "flash_attention_mma_bwd", "flash_attention_bwd", "flash_attention_bwd"] + [
+        "decode_attention"] * 5
 
 
 def test_benches_refuse_to_time_without_a_card(capsys):

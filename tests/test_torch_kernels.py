@@ -469,6 +469,93 @@ def test_decode_mma_rounding_points_stay_inside_the_bf16_tolerance(b, hq, hkv, s
                                            nsplit) == 0)
 
 
+def _decode_f32_emulation(q, k, v, lengths, nsplit, ch=decode_mod.CH_F32, warps=4):
+    """The CUDA-core decode kernel's summation order (``csrc/decode_attention.cu``)
+    on the CPU, f32 throughout: the valid tiles of ``ch`` positions spread
+    over ``nsplit`` splits; in each split every warp carries its own online
+    softmax over its ``ch / warps`` positions of each tile (one max and one
+    rescale a tile); the warps merge their (m, l, acc) in warp order, a state
+    whose max stayed at the sentinel weighing 0; the combine sums the splits
+    in split order, skipping those with l = 0."""
+    b, hq, d = q.shape
+    s, hkv = k.shape[1], k.shape[2]
+    g, nb = hq // hkv, ch // warps
+    scale = torch.tensor(1.0 / np.sqrt(d), dtype=torch.float32)
+    neg = torch.tensor(ref.NEG)
+
+    def merge(states, valid):
+        """(m, l, acc) states summed in their order, weighted by exp(m - max)
+        where ``valid``."""
+        ms = torch.stack([m for m, _, _ in states])
+        ok = torch.stack([valid(st) for st in states])
+        mb = torch.where(ok, ms, neg).amax(0)
+        lb, ob = torch.zeros_like(states[0][1]), torch.zeros_like(states[0][2])
+        for (m, l, o), good in zip(states, ok):
+            w = torch.where(good, torch.exp(m - mb), torch.zeros_like(m))
+            lb, ob = lb + l * w, ob + o * w
+        return mb, lb, ob
+
+    out = torch.zeros((b, hkv, g, d))
+    for bi in range(b):
+        n = max(0, min(int(lengths[bi]), s))
+        nt = -(-n // ch)
+        qf = q[bi].reshape(hkv, g, d)
+        kf, vf = (t[bi].transpose(0, 1) for t in (k, v))  # [Hkv, S, D]
+        parts = []
+        for sp in range(nsplit):
+            states = []
+            for w in range(warps):
+                m = torch.full((hkv, g, 1), ref.NEG)
+                l, o = torch.zeros((hkv, g, 1)), torch.zeros((hkv, g, d))
+                for t in range(sp * nt // nsplit, (sp + 1) * nt // nsplit):
+                    pos = torch.arange(t * ch + w * nb, t * ch + (w + 1) * nb)
+                    ok = pos < n
+                    kk, vv = (torch.where(ok[None, :, None], x[:, pos.clamp(max=s - 1)], 0.0)
+                              for x in (kf, vf))  # zero-filled past the length
+                    x = torch.where(ok, torch.einsum("hgd,hpd->hgp", qf, kk) * scale, neg)
+                    mn = torch.maximum(m, x.amax(-1, keepdim=True))
+                    alpha = torch.exp(m - mn)
+                    p = torch.where(ok, torch.exp(x - mn), 0.0)
+                    l = l * alpha + p.sum(-1, keepdim=True)
+                    o = o * alpha + torch.einsum("hgp,hpd->hgd", p, vv)
+                    m = mn
+                states.append((m, l, o))
+            parts.append(merge(states, lambda st: st[0] > 0.5 * ref.NEG))
+        _, lb, ob = merge(parts, lambda st: st[1] > 0)
+        out[bi] = ob / lb.clamp_min(1e-30)
+    return out.reshape(b, hq, d)
+
+
+@pytest.mark.parametrize("b,hq,hkv,s,d", [
+    (4, 24, 2, 300, 128),  # group 12 at D=128, as starcoder2-3b
+    (4, 32, 4, 300, 128),  # group 8 at D=128, as qwen3-moe
+    (4, 24, 8, 300, 64),   # group 3 at D=64, as granite-moe
+    (4, 4, 2, 300, 64),    # group 2 at D=64, as internlm2
+])
+@pytest.mark.parametrize("nsplit", [None, 7])
+def test_decode_f32_summation_order_stays_inside_the_f32_tolerance(b, hq, hkv, s, d, nsplit):
+    """The CUDA-core decode kernel's order of summation (tiles of 32 spread
+    over the splits, 8 positions a warp and tile, the warp merge, the
+    combine in split order) agrees with the plain version and the Pallas
+    kernel within the f32 tolerance (atol 2e-5, rtol 1e-4), at lengths 0,
+    1, ragged and full, with the wrapper's split count and with 7 splits
+    (empty ones at length 1)."""
+    rng = np.random.default_rng(29)
+    q = _t(_randn(rng, (b, hq, d)))
+    k, v = (_t(_randn(rng, (b, s, hkv, d))) for _ in "kv")
+    lengths = torch.tensor([0, 1, 197, s], dtype=torch.int32)
+    if nsplit is None:
+        nsplit = decode_mod.n_splits(b, hq, hkv, s, decode_mod.CUDA_CORE)
+    emu = _decode_f32_emulation(q, k, v, lengths, nsplit)
+    plain = ref.decode_attention_ref(q, k, v, lengths)
+    torch.testing.assert_close(emu, plain, atol=ATOL, rtol=RTOL)
+    assert torch.all(emu[0] == 0)
+    for i, n in enumerate(lengths.tolist()):
+        pallas = np.array(jdecode(*(jnp.asarray(t[i:i + 1].numpy()) for t in (q, k, v)),
+                                  jnp.int32(n), bs=128))
+        torch.testing.assert_close(emu[i:i + 1], torch.from_numpy(pallas), atol=ATOL, rtol=RTOL)
+
+
 @pytest.mark.parametrize("b,hq,hkv,s,kernel,expect", [
     # the tensor-core kernel (bf16): the LM path, 17 valid tiles (lengths
     # 1025..1088) over 8 splits; longer caches; one split when the shapes
@@ -477,16 +564,17 @@ def test_decode_mma_rounding_points_stay_inside_the_bf16_tolerance(b, hq, hkv, s
     (1, 24, 2, 32768, decode_mod.MMA, 128), (1, 40, 2, 64, decode_mod.MMA, 1),
     (2, 4, 2, 100, decode_mod.MMA, 1), (2, 8, 2, 2000, decode_mod.MMA, 8),
     (64, 32, 8, 4096, decode_mod.MMA, 1),
-    # the CUDA-core kernel (f32), its rule unchanged
-    (8, 24, 2, 2048, decode_mod.CUDA_CORE, 32), (8, 24, 2, 8192, decode_mod.CUDA_CORE, 33),
-    (1, 24, 2, 32768, decode_mod.CUDA_CORE, 264), (1, 40, 2, 64, decode_mod.CUDA_CORE, 1),
-    (2, 4, 2, 100, decode_mod.CUDA_CORE, 2),
+    # the CUDA-core kernel (f32): the f32 LM path, 34 valid tiles of 32
+    # (lengths 1057..1088) over 16 splits; longer caches at two blocks an SM;
+    # one split when the capacity holds fewer than 8 tiles
+    (8, 24, 2, 2048, decode_mod.CUDA_CORE, 16), (8, 24, 2, 8192, decode_mod.CUDA_CORE, 16),
+    (1, 24, 2, 32768, decode_mod.CUDA_CORE, 132), (1, 40, 2, 64, decode_mod.CUDA_CORE, 1),
+    (2, 4, 2, 100, decode_mod.CUDA_CORE, 1),
 ])
 def test_decode_split_count_follows_the_shapes(b, hq, hkv, s, kernel, expect):
-    """The tensor-core kernel: at least 4 tiles of capacity per split and
-    no more blocks than about two per SM. The CUDA-core kernel: about four
-    blocks per SM, no more splits than tiles of capacity. Groups above 16
-    heads take several head tiles."""
+    """Both kernels: at least 4 tiles of capacity per split and no more
+    blocks than about two per SM. Groups above a block's heads (16 on
+    either kernel) take several head tiles."""
     assert decode_mod.n_splits(b, hq, hkv, s, kernel) == expect
 
 
@@ -496,3 +584,16 @@ def test_decode_path_shape_gives_every_split_several_tiles():
     nsplit, nt = decode_mod.n_splits(8, 24, 2, 2048, decode_mod.MMA), -(-1088 // decode_mod.CH)
     shares = [(i + 1) * nt // nsplit - i * nt // nsplit for i in range(nsplit)]
     assert sum(shares) == nt and min(shares) >= 2 and max(shares) <= 3
+
+
+@pytest.mark.parametrize("length", [1057, 1088])
+def test_decode_f32_path_shape_gives_every_split_several_tiles(length):
+    """The CUDA-core kernel at the f32 LM path's shape (B=8, Hq=24, Hkv=2,
+    S=2048): 34 valid tiles of 32 over 16 splits, 2 or 3 each, no split
+    empty, and the grid (16 blocks a split) fills the card at about two
+    blocks an SM."""
+    nsplit = decode_mod.n_splits(8, 24, 2, 2048, decode_mod.CUDA_CORE)
+    nt = -(-length // decode_mod.CH_F32)
+    shares = [(i + 1) * nt // nsplit - i * nt // nsplit for i in range(nsplit)]
+    assert nt == 34 and sum(shares) == nt and min(shares) >= 2 and max(shares) <= 3
+    assert decode_mod.SMS <= 8 * 2 * nsplit <= 2 * decode_mod.SMS

@@ -335,6 +335,37 @@ def test_decode_kernel_empty_rows_and_garbage_past_the_length(cuda, dtype):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("b,hq,hkv,s,d,length", [
+    (8, 24, 2, 2048, 128, 1088),  # the f32 LM path's shape (starcoder2-3b)
+    (8, 32, 4, 2048, 128, 1088),  # qwen3-moe's group 8
+    (8, 24, 8, 2048, 64, 1040),   # granite-moe's group 3 at D=64
+])
+def test_decode_f32_runs_are_bit_equal_on_card(cuda, b, hq, hkv, s, d, length):
+    """The f32 kernel sums the warps and the splits in a fixed order (no
+    atomics): two calls on the same inputs give the same bits."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    q = torch.randn((b, hq, d), generator=gen, device=cuda)
+    k, v = (torch.randn((b, s, hkv, d), generator=gen, device=cuda) for _ in "kv")
+    lengths = torch.full((b,), length, dtype=torch.int32, device=cuda)
+    first = _check_decode(q, k, v, lengths)
+    assert torch.equal(first, decode_mod.decode_attention(q, k, v, lengths))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("length", [32731, 20001])
+def test_decode_f32_long_cache_many_splits_on_card(cuda, length):
+    """B=1 over a 32768-position cache: 132 splits of 7 or 8 valid tiles,
+    the last tile (and so the last split) partial, and every split's partial
+    staged by the combine."""
+    assert decode_mod.n_splits(1, 24, 2, 32768, decode_mod.CUDA_CORE) == 132
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    q = torch.randn((1, 24, 128), generator=gen, device=cuda)
+    k, v = (torch.randn((1, 32768, 2, 128), generator=gen, device=cuda) for _ in "kv")
+    k[:, length:], v[:, length:] = torch.nan, torch.inf  # never read
+    _check_decode(q, k, v, torch.tensor([length], dtype=torch.int32, device=cuda))
+
+
+@pytest.mark.gpu
 def test_decode_kernel_rejects_what_it_does_not_take(cuda):
     q = torch.randn((2, 8, 128), device=cuda)
     k = torch.randn((2, 64, 2, 128), device=cuda)
