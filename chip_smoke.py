@@ -125,6 +125,14 @@ each failing the run on any failed check:
             and 384 px, window 12) and resnet-152 at their serving shapes in
             bf16: images/s, and bf16 logits against f32 logits of the same
             weights within a stated tolerance; ViT launches flash_mma a layer.
+   spatial: resnet-152 ``serve_b128`` (bf16, full size) through
+            ``build_bundle(..., profile_override="spatial")`` on the (1,1)
+            NCCL mesh, logits bit-equal to the unmeshed bundle's; then every
+            distinct convolution and pool that reads a neighbour's rows under
+            a split along H, at that batch and resolution, cut into 2 and 4
+            row blocks with their halos (``resnet.row_blocks``) through the
+            ranks' local op against the unsplit op (bf16 and f32, within
+            SPATIAL_OF_MAX of max|unsplit|; the pool bit-equal), with times.
 15. train:  the flash backward kernels (the tensor-core one at the train
             call [32,16,577,64] bf16 and at [2,24,1024,128] causal, the
             CUDA-core one at the f32 train parity's [4,16,577,64] and at an
@@ -319,6 +327,8 @@ def main() -> int:
     paths["dit_f32_parity"], paths["flux_f32_parity"] = diffusion_parity_phase(torch)
     torch.cuda.empty_cache()
     paths.update(vision_phase(torch))
+    torch.cuda.empty_cache()
+    paths["spatial"] = spatial_phase(torch, smi)
     torch.cuda.empty_cache()
     train_paths, train_run = train_phase(torch, bench)
     paths.update(train_paths)
@@ -2775,6 +2785,143 @@ def vision_phase(torch) -> dict[str, dict[str, int]]:
         del p16, p32, images, logits16, logits32
         torch.cuda.empty_cache()
     return out
+
+
+# --------------------------------------------------------------------- spatial
+
+SPATIAL_ARCH, SPATIAL_SHAPE = "resnet-152", "serve_b128"
+SPATIAL_PARTS = (2, 4)
+# row blocks through the ranks' local op, concatenated, against the unsplit
+# op: within this share of max|unsplit| (other shapes may take another cuDNN
+# algorithm, and bf16 rounds each output: one bf16 ulp at the largest
+# magnitude is 2^-8 of it); the max pool, which only compares, bit-equal
+SPATIAL_OF_MAX = {"bfloat16": 2 ** -7, "float32": 1e-5}
+
+
+def spatial_ops(cfg) -> list[tuple[str, int, int, int, int, int | None]]:
+    """(label, H, k, stride, in channels, out channels; None for the pool)
+    of every distinct convolution and pool of ``cfg``'s forward that reads
+    rows of a neighbouring block (1x1/1 convolutions read none)."""
+    h, w = cfg.img_res, cfg.width
+    ops = [("stem 7x7/2", h, 7, 2, cfg.in_channels, w), ("max pool 3x3/2", h // 2, 3, 2, w, None)]
+    h, cin = h // 4, w
+    for i in range(len(cfg.depths)):
+        cmid, s = w * 2 ** i, 1 if i == 0 else 2
+        ops.append((f"stage{i} conv2 3x3/{s}", h, 3, s, cmid, cmid))
+        if s == 2:
+            ops.append((f"stage{i} proj 1x1/2", h, 1, 2, cin, cmid * cfg.expansion))
+            ops.append((f"stage{i} rest conv2 3x3/1", h // 2, 3, 1, cmid, cmid))
+        h, cin = h // s, cmid * cfg.expansion
+    return ops
+
+
+def _cuda_ms(torch, fn, iters: int = 5) -> float:
+    """Median ms of ``fn`` on the card (CUDA events, after one warm call)."""
+    fn()
+    times = []
+    for _ in range(iters):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return _median(times)
+
+
+def spatial_phase(torch, smi: str) -> dict[str, int]:
+    """resnet-152 ``serve_b128`` under the ``spatial`` profile. On the card's
+    (1,1) NCCL mesh at full size: ``build_bundle(..., profile_override=
+    "spatial")``'s logits bit-equal to the unmeshed bundle's. Then every
+    distinct op that exchanges a halo on a split (``spatial_ops``), at the
+    bundle's batch and resolution, cut into P = 2 and 4 row blocks where
+    the ranks would split it (the output's H divides by P): each block with
+    its halo cut from the global tensor (``resnet.row_blocks``, what
+    ``halo_exchange`` delivers), through the local op the ranks run,
+    concatenated, against the unsplit op, in bf16 (the bundle's dtype) and
+    f32. The exchange itself runs only on gloo ranks (the card's mesh is
+    (1,1)). Returns the counted forward's launches (none: the convolutions
+    are cuDNN's)."""
+    from repro_torch import configs
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import param, resnet
+    from repro_torch.sharding import rules
+
+    t_phase = time.perf_counter()
+    arch = configs.get_arch(SPATIAL_ARCH)
+    shape = arch.shape(SPATIAL_SHAPE)
+    cfg = configs.config_for_shape(arch, shape)
+    mesh = make_host_mesh(device="cuda")
+    b0 = steps.build_bundle(SPATIAL_ARCH, SPATIAL_SHAPE)
+    b1 = steps.build_bundle(SPATIAL_ARCH, SPATIAL_SHAPE, mesh, profile_override="spatial")
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    params = param.init_params(resnet.specs(cfg), gen, "cuda", dtype=cfg.dtype)
+    _draw_bn_stats(torch, params, 8)
+    images = torch.randn((shape.batch, cfg.img_res, cfg.img_res, cfg.in_channels),
+                         device="cuda", generator=gen)
+    batch = {"images": images,
+             "labels": torch.zeros(shape.batch, dtype=torch.int32, device="cuda")}
+    placed = steps.place_inputs(b1, params, batch)
+    want = b0.step_fn(params, batch)
+    zero_counts()
+    got = rules.to_global(b1.step_fn(*placed))
+    torch.cuda.synchronize()
+    counts = read_counts()
+    same = torch.equal(got, want) and bool(torch.isfinite(want).all())
+    ms0 = _cuda_ms(torch, lambda: b0.step_fn(params, batch), 3)
+    ms1 = _cuda_ms(torch, lambda: b1.step_fn(*placed), 3)
+    print(f"[spatial] {smi} | {SPATIAL_ARCH} {SPATIAL_SHAPE} {str(cfg.dtype)[6:]} B={shape.batch} "
+          f"{cfg.img_res} px, profile spatial on the (1,1) NCCL mesh: logits "
+          f"{tuple(got.shape)} bit-equal to the unmeshed bundle's: {same}; "
+          f"{ms1:.2f} ms a forward (unmeshed {ms0:.2f} ms); launches {_nz(counts)} "
+          f"{'ok' if same and counts == _expect() else 'FAIL'}")
+    check(same, "[spatial] the (1,1) spatial bundle's logits differ from the unmeshed ones")
+    check(counts == _expect(), "[spatial] resnet launched a kernel of the port")
+    del params, placed, want, got, batch
+
+    worst = {}
+    for label, h, k, s, cin, cout in spatial_ops(cfg):
+        for parts in SPATIAL_PARTS:
+            if (h // s) % parts:
+                print(f"[spatial] {label} at H={h}, P={parts}: the output's H "
+                      f"{h // s} does not divide by {parts}, so the ranks gather H (fallback)")
+                continue
+            halo = resnet.halo_rows(h, k, s, parts)
+            for dtype in (torch.bfloat16, torch.float32):
+                x = torch.randn((shape.batch, h, h, cin), device="cuda", generator=gen,
+                                dtype=dtype)
+                if cout is None:
+                    whole = lambda: resnet.max_pool_local(x)  # noqa: E731
+                    blocks = resnet.row_blocks(x, k, s, parts, fill=-torch.inf)
+
+                    def split():
+                        return torch.cat([resnet.max_pool_local(b, True) for b in blocks], 1)
+                else:
+                    wt = (torch.randn((k, k, cin, cout), device="cuda", generator=gen)
+                          * (2 / (k * k * cin)) ** 0.5).to(dtype)
+                    whole = lambda: resnet.conv_local(x, wt, s)  # noqa: E731
+                    blocks = resnet.row_blocks(x, k, s, parts)
+
+                    def split():
+                        return torch.cat([resnet.conv_local(b, wt, s, True) for b in blocks], 1)
+                y, yb = whole(), split()
+                name = str(dtype)[6:]
+                err = ((yb.float() - y.float()).abs().max() / y.float().abs().max()).item()
+                limit = 0.0 if cout is None else SPATIAL_OF_MAX[name]
+                ok = yb.shape == y.shape and err <= limit
+                worst[name] = max(worst.get(name, 0.0), err)
+                ms_whole, ms_split = _cuda_ms(torch, whole), _cuda_ms(torch, split)
+                print(f"[spatial] {label} [{shape.batch},{h},{h},{cin}] {name} P={parts} halo "
+                      f"{halo}: blocks vs whole max|d| / max|whole| {err:.3e} (tol {limit:g}); "
+                      f"{ms_whole:.3f} ms whole, {ms_split:.3f} ms the {parts} blocks with "
+                      f"their concatenation {'ok' if ok else 'FAIL'}")
+                check(ok, f"[spatial] {label} P={parts} {name}: row blocks differ from the whole")
+                del x, y, yb, blocks
+    print(f"[spatial] {smi} | worst blocks vs whole: "
+          + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
+          + f"; phase {time.perf_counter() - t_phase:.1f} s")
+    return counts
 
 
 # ----------------------------------------------------------------------- train

@@ -71,7 +71,7 @@ def run_variant(cell: str, variant: str, kwargs: dict, multi_pod=False) -> dict:
     t0 = time.time()
     bundle = build_bundle(arch, shape, mesh, **kwargs)
     rl, counter = dryrun.analyze_bundle(f"{cell}#{variant}", bundle, mesh)
-    rec = {"cell": cell, "variant": variant, "kwargs": repr(kwargs),
+    rec = {"cell": cell, "variant": variant, "status": "ok", "kwargs": repr(kwargs),
            "compile_s": time.time() - t0, "notes": bundle.notes,
            "kernel_calls": dict(counter.kernels), **rl.to_dict()}
     mem = rec["memory_per_device"]

@@ -21,8 +21,8 @@ from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.kernels import ops
 from repro_torch.models.param import ParamSpec
-from repro_torch.sharding.rules import (hold_grad_placements, local_part, redistribute,
-                                        replicated, run_local)
+from repro_torch.sharding.rules import (BATCH_AXES, hold_grad_placements, local_part, place,
+                                        redistribute, replicated, run_local)
 
 # ---------------------------------------------------------------------------
 # specs
@@ -100,11 +100,67 @@ def embed_specs(vocab: int, d_model: int) -> dict:
 # ---------------------------------------------------------------------------
 
 
+def _product(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None) -> torch.Tensor:
+    """``x @ w (+ b)``, w [d_in, d_out]. On DTensors split over more than
+    one rank the placements are decided here, as GSPMD propagates the
+    reference's: the activation keeps its split and the weight follows it,
+    mesh dim by mesh dim of size > 1.
+
+    - x split on a row dim (batch, tokens): the weight whole there.
+    - x split on d_in: the weight split on d_in (row-parallel).
+    - x whole, on a batch axis ("pod", "data"): the weight whole there (a
+      weight split over a batch axis is stored split: ZeRO-3 gathers it).
+    - x whole, on another axis: a weight split on d_in splits x's d_in too
+      (row-parallel), one split on d_out stays (column-parallel).
+
+    A pending sum (``Partial``) is reduced where it is made: x's before the
+    product, the row-parallel product's before the bias, and under autograd
+    x's gradient, which a column-parallel weight makes one, at x. Left to
+    DTensor, operands that disagree are reconciled at the least cost of its
+    model, which prefers splitting mesh dims the rules left replicated (a
+    batch replicated by the divisibility fallback has its tokens split over
+    "pod" and "data"), and the matmul's view back to [B, S, d] then fails.
+    On a mesh of one rank nothing can be split, and DTensor's placements
+    are kept (deciding them there doubled a product's host time)."""
+    mesh = next((t.device_mesh for t in (x, w) if isinstance(t, DTensor)), None)
+    split = [] if mesh is None else [i for i in range(mesh.ndim) if mesh.size(i) > 1]
+    if not split:
+        y = x @ w.to(x.dtype)
+        return y if b is None else y + b.to(y.dtype)
+    x = _sums_reduced(x)
+    xp = list(x.placements) if isinstance(x, DTensor) else [Replicate()] * mesh.ndim
+    wp = list(w.placements) if isinstance(w, DTensor) else [Replicate()] * mesh.ndim
+    last, column = x.ndim - 1, False
+    for i in split:
+        if isinstance(xp[i], Shard):
+            wp[i] = Shard(0) if xp[i].dim == last else Replicate()
+        elif mesh.mesh_dim_names[i] in BATCH_AXES:
+            wp[i] = Replicate()
+        elif isinstance(wp[i], Shard):
+            if wp[i].dim == 0:
+                xp[i] = Shard(last)
+            else:
+                column = True
+    if column:
+        x = hold_grad_placements(x)
+    x = _placed(x, mesh, xp)
+    y = _sums_reduced(x @ _placed(w, mesh, wp).to(x.dtype))
+    if b is None:
+        return y
+    bp = [Shard(0) if isinstance(p, Shard) and p.dim == last else Replicate()
+          for p in y.placements]
+    return y + _placed(b, mesh, bp).to(y.dtype)
+
+
+def _placed(t: torch.Tensor, mesh, placements) -> DTensor:
+    """``t`` in ``placements`` (a plain tensor is the global value)."""
+    if not isinstance(t, DTensor):
+        return place(t, mesh, placements)
+    return redistribute(t, placements)
+
+
 def linear(p: dict, x: torch.Tensor) -> torch.Tensor:
-    y = x @ p["w"].to(x.dtype)
-    if "b" in p:
-        y = y + p["b"].to(y.dtype)
-    return y
+    return _product(x, p["w"], p.get("b"))
 
 
 def _normalized(x: torch.Tensor, eps: float) -> torch.Tensor:
@@ -183,9 +239,7 @@ def _gathered(t: torch.Tensor, dim: int, n: int = 1) -> torch.Tensor:
 
 
 def _proj(p: dict, name: str, x: torch.Tensor, n: int, head_dim: int) -> torch.Tensor:
-    y = x @ p[f"w{name}"].to(x.dtype)
-    if f"b{name}" in p:
-        y = y + p[f"b{name}"].to(y.dtype)
+    y = _product(x, p[f"w{name}"], p.get(f"b{name}"))
     return _gathered(y, -1, n).reshape(*y.shape[:-1], n, head_dim)
 
 
@@ -196,9 +250,7 @@ def _qkv_proj(p: dict, x: torch.Tensor, n_heads: int, n_kv: int, head_dim: int):
         return (_proj(p, "q", x, n_heads, head_dim),
                 _proj(p, "k", x, n_kv, head_dim),
                 _proj(p, "v", x, n_kv, head_dim))
-    y = x @ p["wqkv"].to(x.dtype)
-    if "bqkv" in p:
-        y = y + p["bqkv"].to(y.dtype)
+    y = _product(x, p["wqkv"], p.get("bqkv"))
     q, k, v = y.chunk(3, dim=-1)
     return tuple(t.reshape(*t.shape[:-1], n_heads, head_dim) for t in (q, k, v))
 
@@ -343,9 +395,8 @@ def attention(p: dict, x: torch.Tensor, *, n_heads: int, n_kv: int, head_dim: in
         out = sdpa(q, k, v, bias=bias, causal=causal)
 
     # the gradient of the heads' output must come back in whole heads
-    y = hold_grad_placements(out.reshape(b, s, n_heads * head_dim)) @ p["wo"].to(out.dtype)
-    if "bo" in p:
-        y = y + p["bo"].to(y.dtype)
+    y = _product(hold_grad_placements(out.reshape(b, s, n_heads * head_dim)), p["wo"],
+                 p.get("bo"))
     if return_metric:
         return y, new_cache, k.mean(dim=2)
     return y, new_cache

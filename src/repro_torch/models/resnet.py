@@ -24,17 +24,27 @@ scans them; they run one after another here). Token pruning does not apply
 
 Under sharding rules each stage's first block's output is constrained to
 ("batch", "act_spatial", None, "act_conv_out"), as the reference.
+
+Spatial partitioning (the ``spatial`` profile: "act_spatial", H, on
+"model"): each convolution and the max pool take their input split along H
+where their output's H divides by the split too (else it is gathered, the
+rules' divisibility fallback), and run behind the local boundary with a
+``Halo`` of H rows: ``halo_rows``, from XLA's SAME padding of the global H.
+A rank's block then needs no H padding but the halo's fill at the image's
+edges (0 for a convolution, -inf for the pool); W is padded as unsplit.
+GSPMD inserts the same exchanges for the reference.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.models import layers as L
 from repro_torch.models.param import ParamSpec, layer_params, stack_specs
-from repro_torch.sharding.rules import constrain, run_local
+from repro_torch.sharding.rules import Halo, constrain, current_rules, run_local
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,41 +70,97 @@ def _same_pads(size: int, k: int, stride: int) -> tuple[int, int]:
     return total // 2, total - total // 2
 
 
-def _pad_nchw(x: torch.Tensor, k: int, stride: int, value: float = 0.0):
-    """x [B, C, H, W] padded as XLA's SAME; returns (x, symmetric pads)
-    where symmetric pads are left to the op (no copy)."""
-    ph, pw = _same_pads(x.shape[2], k, stride), _same_pads(x.shape[3], k, stride)
+def _pad_nchw(x: torch.Tensor, k: int, stride: int, value: float = 0.0, rows: bool = True):
+    """x [B, C, H, W] padded as XLA's SAME (H only where ``rows``: a block
+    with its halo needs none); returns (x, symmetric pads) where symmetric
+    pads are left to the op (no copy)."""
+    ph = _same_pads(x.shape[2], k, stride) if rows else (0, 0)
+    pw = _same_pads(x.shape[3], k, stride)
     if ph[0] == ph[1] and pw[0] == pw[1]:
         return x, (ph[0], pw[0])
     return F.pad(x, (pw[0], pw[1], ph[0], ph[1]), value=value), (0, 0)
 
 
-_NHWC = ("batch", None, None, "channels")
+def halo_rows(size: int, k: int, stride: int, parts: int) -> tuple[int, int]:
+    """The (before, after) rows a block of ``size // parts`` rows needs
+    from its neighbours for a k x k / ``stride`` window under XLA's SAME
+    padding of the whole ``size``: the padding's ``before``, and what the
+    block's last output row reads past the block (none where it reads less
+    than the block, as a 1x1/2 convolution). Needs the block's rows to
+    divide by ``stride``."""
+    h = size // parts
+    before = _same_pads(size, k, stride)[0]
+    return before, max((h // stride - 1) * stride + k - before - h, 0)
+
+
+def _split_rows(x: torch.Tensor, k: int, stride: int, fill: float = 0.0,
+                channels: str | None = None):
+    """(x, the local role of its H) for a k x k / ``stride`` window under
+    the active rules: where "act_spatial" splits H over more than one rank
+    and the output's H divides by that split too, x split along H and a
+    ``Halo`` of ``halo_rows``; else x with H whole (the rules'
+    divisibility fallback, recorded in their ``fallbacks``) and None.
+    ``channels``: the logical axis of x's channels (None: gathered)."""
+    r = current_rules()
+    if r is None:
+        return x, None
+    b, h, w, c = x.shape
+    out = (b, -(-h // stride), -(-w // stride), c)
+    axes = r.spec_for(out, (None, "act_spatial", None, None))[1]
+    parts = 1 if axes is None else math.prod(
+        r.shape[a] for a in ((axes,) if isinstance(axes, str) else axes))
+    if parts == 1:
+        return constrain(x, ("batch", None, None, channels)), None
+    x = constrain(x, ("batch", "act_spatial", None, channels))
+    return x, Halo("rows", *halo_rows(h, k, stride, parts), fill)
+
+
+def row_blocks(x: torch.Tensor, k: int, stride: int, parts: int,
+               fill: float = 0.0) -> list[torch.Tensor]:
+    """x [B, H, W, C] cut into ``parts`` row blocks, each with its
+    ``halo_rows`` cut from x (``fill`` past x's edges): what the local op
+    gets on each rank of a split over ``parts`` after ``halo_exchange``."""
+    h = x.shape[1] // parts
+    before, after = halo_rows(x.shape[1], k, stride, parts)
+    xp = F.pad(x, (0, 0, 0, 0, before, after), value=fill)
+    return [xp[:, i * h:(i + 1) * h + before + after] for i in range(parts)]
+
+
+def conv_local(x: torch.Tensor, w: torch.Tensor, stride: int, halo: bool = False):
+    """The convolution on one rank's tensors: x [B, H, W, Cin] (NHWC), w
+    HWIO; SAME padding, but none along H where x's rows carry their halo."""
+    w = w.to(x.dtype)
+    xc, pad = _pad_nchw(x.permute(0, 3, 1, 2), w.shape[0], stride, rows=not halo)
+    return F.conv2d(xc, w.permute(3, 2, 0, 1), stride=stride, padding=pad).permute(0, 2, 3, 1)
+
+
+def max_pool_local(x: torch.Tensor, halo: bool = False) -> torch.Tensor:
+    """The 3x3/2 max pool on one rank's x [B, H, W, C]: SAME padding with
+    -inf, none along H where x's rows carry their halo."""
+    xc, pad = _pad_nchw(x.permute(0, 3, 1, 2), 3, 2, value=-torch.inf, rows=not halo)
+    return F.max_pool2d(xc, 3, 2, padding=pad).permute(0, 2, 3, 1)
 
 
 def conv(p: dict, x: torch.Tensor, stride: int = 1) -> torch.Tensor:
     """x [B, H, W, Cin] (NHWC) * HWIO kernel, SAME padding -> [B, H', W', Cout].
     On DTensors it runs behind the local boundary (DTensor's convolution
-    takes only some shardings): batch and output channels may be sharded,
-    input channels not, so a channel-sharded input (the previous conv's
-    output) is gathered first, as XLA does for the reference."""
-    def local(x, w):
-        w = w.to(x.dtype)
-        xc, pad = _pad_nchw(x.permute(0, 3, 1, 2), w.shape[0], stride)
-        y = F.conv2d(xc, w.permute(3, 2, 0, 1), stride=stride, padding=pad)
-        return y.permute(0, 2, 3, 1)
-    x = constrain(x, ("batch", "act_spatial", None, None))  # input channels gathered
-    return run_local("conv", local, (x, p["w"]),
-                     (("batch", None, None, None), (None, None, None, "channels")), _NHWC)
+    takes only some shardings): batch, output channels and (with a halo,
+    ``_split_rows``) rows may be sharded, input channels not, so a
+    channel-sharded input (the previous conv's output) is gathered first, as
+    XLA does for the reference."""
+    x, rows = _split_rows(x, p["w"].shape[0], stride)  # input channels gathered
+    return run_local("conv", lambda x, w: conv_local(x, w, stride, rows is not None),
+                     (x, p["w"]), (("batch", rows, None, None), (None, None, None, "channels")),
+                     ("batch", "rows" if rows else None, None, "channels"))
 
 
 def _max_pool(x: torch.Tensor) -> torch.Tensor:
     """3x3/2 max pool, SAME padding with -inf, NHWC (channels independent;
-    behind the local boundary on DTensors)."""
-    def local(x):
-        xc, pad = _pad_nchw(x.permute(0, 3, 1, 2), 3, 2, value=-torch.inf)
-        return F.max_pool2d(xc, 3, 2, padding=pad).permute(0, 2, 3, 1)
-    return run_local("max_pool", local, (x,), (_NHWC,), _NHWC)
+    behind the local boundary on DTensors, rows with a halo of -inf)."""
+    x, rows = _split_rows(x, 3, 2, fill=-torch.inf, channels="act_conv_out")
+    return run_local("max_pool", lambda x: max_pool_local(x, rows is not None), (x,),
+                     (("batch", rows, None, "channels"),),
+                     ("batch", "rows" if rows else None, None, "channels"))
 
 
 def bn_specs(c: int) -> dict:

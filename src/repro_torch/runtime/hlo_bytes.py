@@ -24,7 +24,9 @@ collective counts it keeps) entered around a step:
 - **Collectives**: every functional and c10d collective the step issues
   (DTensor redistributions included), as ``Collective`` records of the op,
   the group's size and global ranks, and the operand bytes, for
-  ``roofline.collective_bytes``.
+  ``roofline.collective_bytes``. Point-to-point sends and receives are
+  reported by their caller (``permutes``: a halo exchange is the
+  reference's ``collective-permute``).
 - **Kernels**: the Hopper kernels are called through ctypes, which no
   dispatch mode sees, and their plain versions (the CPU and fake routes)
   materialise tensors the kernels never write. So ``kernels.ops`` reports
@@ -47,7 +49,7 @@ import dataclasses
 import functools
 import weakref
 from collections import defaultdict
-from typing import Callable
+from typing import Callable, Sequence
 
 import torch
 import torch.distributed as dist
@@ -263,6 +265,25 @@ class Counter(CommDebugMode):
         self.add(str(packet), flops, float(nbytes), _product_dtype(args), shapes)
         self.track(out)
         return out
+
+
+def permutes(group, operand_bytes: Sequence[float], fn: Callable[[], object]):
+    """``fn()``, a point-to-point exchange over ``group`` that every rank
+    makes alike (a halo exchange): every active ``Counter`` records one
+    ``collective-permute``, the reference's op for it, for each entry of
+    ``operand_bytes`` (the bytes each rank sends one way), and counts
+    nothing dispatched inside (the sends and receives). A rank at an edge of
+    the group sends one way only; the record is the program's, as XLA's op
+    is, so the count is the same whichever rank is counted."""
+    counters = _active()
+    if not counters:
+        return fn()
+    ranks = tuple(dist.get_process_group_ranks(group))
+    for c in counters:
+        c.collectives.extend(Collective("collective-permute", len(ranks), float(b), ranks,
+                                        "c10d.send") for b in operand_bytes)
+    with _paused():
+        return fn()
 
 
 def kernel(name: str, cost: Callable[[], tuple[float, float, torch.dtype]],

@@ -21,11 +21,13 @@ global tensor as a view and wraps it with ``DTensor.from_local``
 copy do not fit on one 80 GB card).
 
 Where DTensor cannot run an op, or where it must not decide how (the
-Hopper kernels, the ToMe merge's sorts and scatters), the model calls
-``run_local``: the op runs on each rank's local tensors, and its result is
-wrapped back with the operands' placements. It allows sharding only on the
-dims the op treats independently (batch rows, attention heads) and raises
-on any other: a sharded operand is never gathered silently.
+Hopper kernels, the ToMe merge's sorts and scatters, convolutions), the
+model calls ``run_local``: the op runs on each rank's local tensors, and its
+result is wrapped back with the operands' placements. It allows sharding
+only on the dims the op treats independently (batch rows, attention heads)
+or declares with a ``Halo`` (a convolution's rows: each rank's block gets
+its neighbours' edge rows first, ``halo_exchange``), and raises on any
+other: a sharded operand is never gathered silently.
 
 Profiles:
   tp       TP on "model" for hidden/head/vocab/expert dims; DP on batch.
@@ -41,9 +43,11 @@ import math
 from typing import Any, Callable, Mapping, Sequence
 
 import torch
+import torch.distributed as dist
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.models.param import ParamSpec, tree_map
+from repro_torch.runtime import hlo_bytes
 
 # Mesh axes are ("pod", "data", "model") or ("data", "model"); "pod" folds into
 # data-parallelism whenever present.
@@ -402,13 +406,119 @@ def _contiguous_stride(shape) -> tuple[int, ...]:
     return tuple(reversed(stride))
 
 
+@dataclasses.dataclass(frozen=True)
+class Halo:
+    """A ``run_local`` role of a dim that the op computes with a halo (a
+    convolution's or a pool's rows). Where a mesh dim splits it, each
+    rank's block gets ``before`` rows of the previous rank's block and
+    ``after`` of the next's first, and ``fill`` (the op's padding value)
+    past the first and last block; the result keeps the split."""
+    role: str
+    before: int
+    after: int
+    fill: float = 0.0
+
+
+def _role(r):
+    return r.role if isinstance(r, Halo) else r
+
+
+def _swap(to_prev, to_next, n_prev: int, n_next: int, dim: int, group, like: torch.Tensor):
+    """Point-to-point over ``group``: ``to_prev`` goes to the previous rank
+    and ``to_next`` to the next (None: nothing that way); ``n_prev`` rows
+    along ``dim`` come from the previous rank and ``n_next`` from the next.
+    Returns (from the previous, from the next), None where no rank is there
+    or nothing comes."""
+    rank, size = dist.get_rank(group), dist.get_world_size(group)
+    ops, got = [], [None, None]
+
+    def receive(side, n, peer):
+        shape = list(like.shape)
+        shape[dim] = n
+        got[side] = like.new_empty(shape)
+        ops.append(dist.P2POp(dist.irecv, got[side], dist.get_global_rank(group, peer), group))
+
+    if rank > 0:
+        if to_prev is not None:
+            ops.append(dist.P2POp(dist.isend, to_prev.contiguous(),
+                                  dist.get_global_rank(group, rank - 1), group))
+        if n_prev:
+            receive(0, n_prev, rank - 1)
+    if rank + 1 < size:
+        if to_next is not None:
+            ops.append(dist.P2POp(dist.isend, to_next.contiguous(),
+                                  dist.get_global_rank(group, rank + 1), group))
+        if n_next:
+            receive(1, n_next, rank + 1)
+    if ops:
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+    return got
+
+
+def _rows_bytes(x: torch.Tensor, dim: int, n: int) -> float:
+    return x.numel() // max(x.shape[dim], 1) * n * x.element_size()
+
+
+class _HaloExchange(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, before, after, fill, group):
+        h = x.shape[dim]
+        if before > h or after > h:
+            raise ValueError(f"a halo of ({before}, {after}) rows is wider than a block of {h}")
+        ctx.args = (dim, before, after, group)
+        sends = [_rows_bytes(x, dim, n) for n in (before, after) if n]
+        top, bottom = hlo_bytes.permutes(group, sends, lambda: _swap(
+            x.narrow(dim, 0, after) if after else None,
+            x.narrow(dim, h - before, before) if before else None, before, after, dim, group, x))
+
+        def edge(n):
+            shape = list(x.shape)
+            shape[dim] = n
+            return x.new_full(shape, fill)
+        parts = ([top if top is not None else edge(before)] if before else []) + [x] + \
+            ([bottom if bottom is not None else edge(after)] if after else [])
+        return torch.cat(parts, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        dim, before, after, group = ctx.args
+        h = g.shape[dim] - before - after
+        mid = g.narrow(dim, before, h).clone()
+        sends = [_rows_bytes(g, dim, n) for n in (before, after) if n]
+        from_prev, from_next = hlo_bytes.permutes(group, sends, lambda: _swap(
+            g.narrow(dim, 0, before) if before else None,
+            g.narrow(dim, before + h, after) if after else None, after, before, dim, group, g))
+        if from_prev is not None:
+            mid.narrow(dim, 0, after).add_(from_prev)
+        if from_next is not None:
+            mid.narrow(dim, h - before, before).add_(from_next)
+        return mid, None, None, None, None, None
+
+
+def halo_exchange(x: torch.Tensor, dim: int, before: int, after: int, fill: float,
+                  group) -> torch.Tensor:
+    """``x``, this rank's block of a dim split over ``group`` in rank order,
+    with ``before`` rows of the previous rank's block and ``after`` of the
+    next's around it along ``dim``; ``fill`` past the first and last
+    block. Batched point-to-point sends (gloo, NCCL and the fake backend
+    all have them), counted as the reference's ``collective-permute``
+    (``hlo_bytes.permutes``). Its backward is the transpose: each halo's
+    gradient goes back to the rank that owns those rows and is added there."""
+    if not before and not after:
+        return x
+    return _HaloExchange.apply(x, dim, before, after, fill, group)
+
+
 def run_local(name: str, fn: Callable, operands: Sequence, roles: Sequence,
               out_roles: Sequence):
     """``fn(*locals)`` on each rank's local tensors of ``operands``.
 
     ``roles`` gives, per operand, one label per dim: a dim labelled (e.g.
     ``"batch"``, ``"heads"``) is one ``fn`` treats independently, and may be
-    sharded; ``None`` marks a dim that must not be. Non-tensor operands
+    sharded; a ``Halo`` labels one ``fn`` computes from neighbouring rows,
+    which may be sharded on one mesh dim and reaches ``fn`` with its halo
+    (``halo_exchange``); ``None`` marks a dim that must not be. Non-tensor operands
     (``None``, ints) pass as they are, a plain tensor is taken as the global
     value; with no DTensor operand, ``fn`` runs on the operands unchanged. For
     each mesh dim of size > 1 the labelled role sharded on it is brought
@@ -434,25 +544,31 @@ def run_local(name: str, fn: Callable, operands: Sequence, roles: Sequence,
         for i, p in enumerate(t.placements):
             if mesh.size(i) == 1 or not isinstance(p, Shard):
                 continue
-            role = r[p.dim]
+            role = _role(r[p.dim])
             if role is None:
                 raise ValueError(
                     f"{name}: an operand of shape {tuple(t.shape)} is sharded on dim "
                     f"{p.dim} (mesh dim {i}), which {name} does not treat independently; "
-                    f"only {sorted({x for rr in roles for x in rr if x})} may be sharded")
+                    f"only {sorted({_role(x) for rr in roles for x in rr if x})} may be "
+                    f"sharded")
             if mesh_role[i] not in (None, role):
                 raise ValueError(f"{name}: mesh dim {i} shards both {mesh_role[i]!r} "
                                  f"and {role!r}")
             mesh_role[i] = role
+    halos = {_role(x) for rr in roles for x in rr if isinstance(x, Halo)}
+    for role in halos:
+        if mesh_role.count(role) > 1:
+            raise ValueError(f"{name}: {role!r} has a halo and is split by more than one "
+                             f"mesh dim")
 
     def target(t, r):
-        out = []
+        out, names = [], [_role(x) for x in r]
         for i in range(mesh.ndim):
             role = mesh_role[i]
             if mesh.size(i) == 1:  # the local data is the global data there
                 out.append(t.placements[i] if isinstance(t, DTensor) else Replicate())
-            elif role is not None and role in r:
-                d = r.index(role)
+            elif role is not None and role in names:
+                d = names.index(role)
                 if t.shape[d] % mesh.size(i):
                     raise ValueError(f"{name}: {role} dim {d} of {tuple(t.shape)} does "
                                      f"not divide by mesh dim {i} of size {mesh.size(i)}")
@@ -466,8 +582,15 @@ def run_local(name: str, fn: Callable, operands: Sequence, roles: Sequence,
                      and isinstance(p, Replicate) else p
                      for i, p in enumerate(target(t, r)))
 
-    local = [local_part(t, mesh, target(t, r), grad_at(t, r)) if isinstance(t, torch.Tensor)
-             else t for t, r in zip(operands, roles)]
+    def with_halos(x, r):
+        for i, role in enumerate(mesh_role):
+            for d, h in enumerate(r):
+                if mesh.size(i) > 1 and isinstance(h, Halo) and h.role == role:
+                    x = halo_exchange(x, d, h.before, h.after, h.fill, mesh.get_group(i))
+        return x
+
+    local = [with_halos(local_part(t, mesh, target(t, r), grad_at(t, r)), r)
+             if isinstance(t, torch.Tensor) else t for t, r in zip(operands, roles)]
     out = fn(*local)
 
     def wrap(y, r):
