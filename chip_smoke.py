@@ -15,7 +15,9 @@ each failing the run on any failed check:
             tensor-core flash backward not at D=64: its D=128 spill is
             printed), nor the 3xTF32 flash kernels at D <= 64, nor the f32
             decode kernel at any instantiation; the dynamic shared memory and
-            blocks per SM of those three are printed for each instantiation;
+            blocks per SM of those and of the tensor-core flash forward are
+            printed for each instantiation, and ptxas may not serialise the
+            forward's wgmmas;
 3. kernels: each kernel against its plain PyTorch version on the card at the
             main paths' shapes, and timed beside its plain version, one
             library call computing the same function, and its bound. Flash
@@ -270,9 +272,10 @@ def main() -> int:
     for name in _build.SOURCES:
         for line in ptxas_summary(_build.build_log(name)):
             print(f"[build] {name}: {line}")
-    # instantiations: flash_mma D 64/128; tome D 16/32/64/128; decode_mma the
-    # split and combine passes at D 64/128
-    for name, n_lines in (("flash_attention_mma", 2), ("tome_scores", 4),
+    # instantiations: flash_mma D=64 with one consumer warpgroup, D=128 with
+    # one and two; tome D 16/32/64/128; decode_mma the split and combine
+    # passes at D 64/128
+    for name, n_lines in (("flash_attention_mma", 3), ("tome_scores", 4),
                           ("decode_attention_mma", 4)):
         lines = ptxas_summary(_build.build_log(name))
         check(len(lines) == n_lines and all(" 0 B spill stores, 0 B spill loads" in line
@@ -287,6 +290,7 @@ def main() -> int:
         spills = [line for line in lines if " 0 B spill stores, 0 B spill loads" not in line]
         print(f"[build] {name}: {len(spills)} of {n_lines} instantiations spill"
               + (": " + "; ".join(line.split(":")[0] for line in spills) if spills else ""))
+    flash_mma_fwd_occupancy()
     flash_mma_bwd_occupancy()
     flash_tf32_occupancy()
     decode_occupancy()
@@ -349,6 +353,40 @@ def main() -> int:
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0
+
+
+def flash_mma_fwd_occupancy() -> None:
+    """The tensor-core flash forward (``flash_attention_mma``, wgmma and
+    TMA): each instantiation's dynamic shared memory and the blocks of it an
+    SM holds at once, from the library's occupancy entry
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), beside its ptxas
+    line (D=64 with one consumer warpgroup, D=128 with one and two), and
+    the warpgroups the launch rule gives kernel_bench's flash_attention_mma
+    rows. No instantiation may spill, and ptxas may not serialise its wgmmas
+    (C7511: the products would then run one at a time)."""
+    import ctypes
+    from repro_torch.benchmarks import kernel_bench
+    from repro_torch.kernels import _build
+    lib = _build.load("flash_attention_mma")
+    log = _build.build_log("flash_attention_mma")
+    lines = ptxas_summary(log)
+    check(len(lines) == 3, f"ptxas printed {len(lines)} lines for flash_attention_mma")
+    for line in lines:
+        kernel, d, w = re.match(r"(\w+)<(\d+),(\d+)>", line).groups()
+        smem, blocks = ctypes.c_int(), ctypes.c_int()
+        err = lib.flash_attention_mma_fwd_occupancy(int(d), int(w), ctypes.byref(smem),
+                                                    ctypes.byref(blocks))
+        check(err == 0, f"flash_attention_mma_fwd_occupancy({d}, {w}): cudaError {err}")
+        print(f"[build] flash_attention_mma: {kernel}<{d},{w}> {smem.value} B dynamic shared "
+              f"memory, {blocks.value} blocks/SM")
+        check(" 0 B spill stores, 0 B spill loads" in line, f"flash_attention_mma spills: {line}")
+    serialised = [line.strip() for line in log.splitlines() if "C7511" in line]
+    check(not serialised, "ptxas serialises flash_attention_mma's wgmmas: " + "; ".join(serialised))
+    rule = {}
+    for case in kernel_bench.CASES:
+        if case.kernel() == "flash_attention_mma":
+            rule[case.label] = lib.flash_attention_mma_fwd_warpgroups(*case.shape)
+    print(f"[build] flash_attention_mma: consumer warpgroups a block by the launch rule: {rule}")
 
 
 def flash_mma_bwd_occupancy() -> None:

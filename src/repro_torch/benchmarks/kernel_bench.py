@@ -7,8 +7,9 @@ one shape: its wrapper is checked against its plain PyTorch version
 (``kernels/ref.py``) on the same inputs, then timed queued behind a sleep
 kernel (``timing.time_ms(queued=True)``: the card's time per call, the
 host's per-call overhead hidden) beside its plain version and one library
-call computing the same function (SDPA; ``bmm`` + ``max(-1)``), and set
-against its H100 bound (``timing.bound``: the bytes each input read once
+call computing the same function (SDPA; ``bmm`` + ``max(-1)``; a plain
+flash version whose f32 scores pass PLAIN_QUEUED_MAX_BYTES back to back,
+``plain_timing`` says which), and set against its H100 bound (``timing.bound``: the bytes each input read once
 and each output written once over HBM's rate, or the operations over the
 dtype's peak, whichever is larger).
 
@@ -29,6 +30,11 @@ qwen3-moe group 8, granite-moe group 3 at D=64) and two long full caches
 (B=8 over 8192 positions, B=1 over 32768). Every decode row also carries
 ``cold_l2_ms``, its time with the L2 flushed before each call
 (``timing.time_cold_ms``): its path shapes' caches fit in the 50 MB L2.
+Part 5: flash_attention_mma where it lost most to SDPA: flux-dev
+``gen_1024`` [4,24,4608,128] and [16,24,1536,128], the qwen3-moe prefill
+[8,32,1024,128] causal, vit-l16 ``cls_384``'s train forward [32,16,577,64],
+dit-s2 ``gen_1024`` [4,6,4096,64] with the log-size bias, and the Janus
+path's one-frame call [1,16,577,64] with the bias.
 
 ``rows()`` keeps the reference's ``(name, us_per_call, derived)`` shape:
 the kernel's µs a call and its bound in µs. Without a card it refuses: no
@@ -73,6 +79,11 @@ DECODE_BF16 = dict(atol=2e-2, rtol=0.0)
 # above on the CPU); f32 both f32 throughout, only sums differ in order
 FLASH_BWD_BF16_OF_MAX = 1e-2
 FLASH_BWD_F32_OF_MAX = 1e-4
+# a flash call's plain version materialises its f32 scores [B, H, Sq, Sk]; past
+# this many bytes its allocations stall the host, which then cannot queue the
+# calls behind the sleep kernel (flux-dev gen_1024's 8.2 GB), so it is timed
+# back to back
+PLAIN_QUEUED_MAX_BYTES = 2 << 30
 
 
 @dataclasses.dataclass(frozen=True)
@@ -130,6 +141,14 @@ class Case:
     def bound(self) -> tuple[float, str]:
         return bound(self.flops(), self.nbytes(), self.peak)
 
+    def plain_queued(self) -> bool:
+        """Whether the plain version is timed queued (see
+        PLAIN_QUEUED_MAX_BYTES), else back to back."""
+        if self.family != "flash":
+            return True
+        b, h, s, _ = self.shape
+        return 4 * b * h * s * s <= PLAIN_QUEUED_MAX_BYTES
+
     def kernel(self) -> str:
         """The name of the kernel the wrapper routes this call to."""
         if self.family == "flash":
@@ -165,6 +184,17 @@ CASES = (
     Case("granite_decode_f32", "decode", (8, 24, 8, 2048, 64), torch.float32, length=1040),
     Case("long_cache_b8_f32", "decode", (8, 24, 2, 8192, 128), torch.float32, length=8192),
     Case("long_cache_b1_f32", "decode", (1, 24, 2, 32768, 128), torch.float32, length=32768),
+    # part 5: the bf16 forward where it lost most to SDPA: flux-dev gen_1024's
+    # two joint-attention calls, qwen3-moe's causal prefill, vit-l16 cls_384's
+    # train forward (no bias) and dit-s2 gen_1024 with the log-size bias; and
+    # the Janus path's one-frame call (ViT-L@384 at B=1, the bias), its
+    # smallest grid
+    Case("flux_gen1024_bf16", "flash", (4, 24, 4608, 128), torch.bfloat16),
+    Case("flux_1536_bf16", "flash", (16, 24, 1536, 128), torch.bfloat16),
+    Case("qwen3_prefill_causal_bf16", "flash", (8, 32, 1024, 128), torch.bfloat16, causal=True),
+    Case("vit_l16_train_fwd_bf16", "flash", (32, 16, 577, 64), torch.bfloat16),
+    Case("dit_s2_bias_bf16", "flash", (4, 6, 4096, 64), torch.bfloat16, bias=True),
+    Case("vit_b1_bias_bf16", "flash", (1, 16, 577, 64), torch.bfloat16, bias=True),
 )
 
 
@@ -289,7 +319,7 @@ def measure(cases=CASES) -> list[dict]:
                                f"tol {tol})")
         iters = 10 if case.causal or case.family == "flash_bwd" else 30
         ms = time_ms(kernel, iters, queued=True)
-        plain_ms = time_ms(plain, iters, queued=True)
+        plain_ms = time_ms(plain, iters, queued=case.plain_queued())
         library_ms = time_ms(library, iters, queued=True)
         bound_ms, bound_by = case.bound()
         extra = {"cold_l2_ms": time_cold_ms(kernel)} if case.family == "decode" else {}
@@ -298,6 +328,7 @@ def measure(cases=CASES) -> list[dict]:
                     "shape": list(case.shape), "dtype": str(case.dtype).removeprefix("torch."),
                     "causal": case.causal, "bias": case.bias, "length": case.length,
                     "max_abs_err": err, "tol": tol, "timing": "queued",
+                    "plain_timing": "queued" if case.plain_queued() else "back to back",
                     "ms": ms, "plain_ms": plain_ms, "library": library_name,
                     "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
                     "flops": case.flops(), "bytes": case.nbytes(), **extra})

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` becomes its own shared library with a plain C
 interface (no PyTorch headers, so a build takes seconds, not minutes), under
 ``build/repro_torch_kernels/`` at the root of the checkout. A library's file
-name carries a hash of its source and flags, so an edited source is rebuilt
-and a stale library is never loaded. ``build_all`` starts one nvcc per source
+name carries a hash of its source, of the shared headers ``csrc/*.cuh`` and
+of the flags, so an edited source or header is rebuilt and a stale library
+is never loaded. ``build_all`` starts one nvcc per source
 at once; ``load`` builds one on demand. Nothing here runs at import time.
 """
 from __future__ import annotations
@@ -37,9 +38,14 @@ def _nvcc() -> str:
 
 
 def lib_path(name: str) -> pathlib.Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """The library of ``csrc/<name>.cu``, named by a hash of its source, of
+    every ``csrc/*.cuh`` header (any source may include any of them) and of
+    the flags."""
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + b"\0" + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
 def _start(name: str) -> tuple[subprocess.Popen, pathlib.Path, pathlib.Path] | None:

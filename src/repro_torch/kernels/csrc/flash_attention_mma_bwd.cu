@@ -107,28 +107,20 @@
 // One block an SM, held there by the 384 x 168 registers.
 // Each call encodes its tensor maps on the host (q, k, v, out and dout move
 // from call to call) through the driver's cuTensorMapEncodeTiled, reached
-// with cudaGetDriverEntryPoint so that the build links no -lcuda.
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+// with cudaGetDriverEntryPoint so that the build links no -lcuda. The
+// mbarrier, TMA, wgmma and descriptor helpers and that encoder live in
+// hopper.cuh, shared with the forward (flash_attention_mma.cu).
 #include <math.h>
-#include <stdint.h>
 
 #include <chrono>
-#include <type_traits>
+
+#include "hopper.cuh"
 
 namespace {
 
-using bf16 = __nv_bfloat16;
-template <int N>
-using Int = std::integral_constant<int, N>;
-
 constexpr int THREADS = 384;   // a producer warpgroup, then two consumer warpgroups
 constexpr int ROWS = 128;      // dQ pass: resident rows a block, 64 a consumer warpgroup
-constexpr int PANEL = 64;      // bf16 columns of one 128-byte swizzled row
 constexpr int PRODUCER_REGS = 56, CONSUMER_REGS = 224;  // 128*56 + 256*224 = 384*168
-constexpr float NEG = -1e30f;
-constexpr float LOG2E = 1.4426950408889634f;
 
 // Tiles and shared memory of one head dim. Every tile region starts on 1024
 // bytes (the 128-byte swizzle's period); the per-row vectors and the
@@ -192,301 +184,6 @@ struct DkdvParams {
   float scale_log2, scale;
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// ---- mbarriers and TMA
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(bar) : "memory");
-}
-
-__device__ __forceinline__ bool mbar_test(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  asm volatile("{\n.reg .pred p;\n"
-               "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-               "selp.u32 %0, 1, 0, p;\n}\n"
-               : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-  return done != 0;
-}
-
-__device__ __forceinline__ uint64_t global_ns() {
-  uint64_t t;
-  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
-  return t;
-}
-
-// Waits for the phase of `parity` to complete. A phase that never completes
-// (a lost TMA box, a miscounted arrival) traps after 4 s: the launch fails
-// with an error instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  if (mbar_test(bar, parity)) return;
-  const uint64_t t0 = global_ns();
-  while (!mbar_test(bar, parity))
-    if (global_ns() - t0 > 4000000000ull) __trap();
-}
-
-__device__ __forceinline__ void tma_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0,
-                                       int c1, int c2) {
-  asm volatile("cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
-               "[%0], [%1, {%3, %4, %5}], [%2];\n"
-               :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
-                  "r"(c2)
-               : "memory");
-}
-
-// 4-byte asynchronous copy; with valid == false the destination is zero-filled
-// and nothing is read
-__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-               :: "r"(dst), "l"(src), "r"(valid ? 4 : 0) : "memory");
-}
-
-// one arrival on `bar` once this thread's earlier cp.async copies have landed
-// (counted in the barrier's expected arrivals)
-__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
-  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" :: "r"(bar) : "memory");
-}
-
-// barrier `id` (1 + consumer warpgroup) over the 128 threads of a warpgroup
-__device__ __forceinline__ void wg_sync(int id) {
-  asm volatile("bar.sync %0, 128;\n" :: "r"(id) : "memory");
-}
-
-// named barrier `id` over both consumer warpgroups: wait for it, or arrive
-// without waiting
-__device__ __forceinline__ void pair_sync(int id) {
-  asm volatile("bar.sync %0, 256;\n" :: "r"(id) : "memory");
-}
-
-__device__ __forceinline__ void pair_arrive(int id) {
-  asm volatile("bar.arrive %0, 256;\n" :: "r"(id) : "memory");
-}
-
-// ---- wgmma
-
-// descriptor of a 128-byte-swizzled operand at shared address `addr`: 8-row
-// groups 1024 bytes apart (SBO); `lbo` is the panel stride of an MN-major
-// operand wider than 64 columns (unused by K-major operands)
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-// waits until at most N of this warpgroup's committed groups are in flight
-template <int N>
-__device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
-}
-
-// keeps the compiler from moving reads or writes of registers that an
-// in-flight wgmma owns across the fence
-template <int N>
-__device__ __forceinline__ void reg_fence(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void reg_fence(uint32_t (&r)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j]) :: "memory");
-}
-
-// d (64 x N a warpgroup, N/2 floats a thread) = or += A.B^T, A and B K-major
-// in shared memory (scale_d 0: d = A.B^T)
-template <int N>
-__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a, uint64_t b, int scale_d);
-
-// d (64 x N) += A.B, A the warpgroup's 64 x 16 bf16 fragments in registers,
-// B (16 x N) MN-major in shared memory
-template <int N>
-__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t b);
-
-template <>
-__device__ __forceinline__ void wgmma_ss<8>(float (&d)[4], uint64_t a, uint64_t b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3}, %4, %5, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "l"(a), "l"(b), "r"(scale_d));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_ss<16>(float (&d)[8], uint64_t a, uint64_t b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7])
-      : "l"(a), "l"(b), "r"(scale_d));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_ss<32>(float (&d)[16], uint64_t a, uint64_t b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, "
-      "%17, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15])
-      : "l"(a), "l"(b), "r"(scale_d));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_ss<64>(float (&d)[32], uint64_t a, uint64_t b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, "
-      "%17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
-        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(a), "l"(b), "r"(scale_d));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_rs<64>(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, "
-      "%17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
-        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_rs<128>(float (&d)[64], const uint32_t (&a)[4], uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, "
-      "%17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, "
-      "%33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, "
-      "%49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
-        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
-        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]),
-        "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-// ---- element work
-
-// 2^x (MUFU.EX2; results below 2^-126 flush to 0)
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// two floats -> one register of two bf16 (round to nearest even), lo first
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&h);
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
-// a 64 x N accumulator as bf16 A fragments of 16 columns (k-steps); an
-// 8-wide one fills the upper 8 columns of its k-step with zeros
-template <int N>
-__device__ __forceinline__ void to_frags(uint32_t (&f)[(N + 15) / 16][4], const float (&x)[N / 2]) {
-#pragma unroll
-  for (int nb = 0; nb < N / 8; ++nb) {
-    f[nb >> 1][(nb & 1) * 2] = pack_bf16(x[4 * nb], x[4 * nb + 1]);
-    f[nb >> 1][(nb & 1) * 2 + 1] = pack_bf16(x[4 * nb + 2], x[4 * nb + 3]);
-  }
-  if constexpr (N % 16 != 0) f[N / 16][2] = f[N / 16][3] = 0u;
-}
-
-// A thread's 64 x D accumulator rows (warp's 16, rows g and g + 8), times
-// `mul`, as bf16 into `dst`: the warpgroup's 64 rows of a resident tile, in
-// the 128-byte swizzle (16-byte piece c of row r at c ^ (r % 8)), panels
-// `panel_bytes` apart
-template <int D>
-__device__ __forceinline__ void stage_rows(unsigned char* dst, const float (&acc)[D / 2], float mul,
-                                           int panel_bytes, int warp, int g, int t4) {
-  const int ra = warp * 16 + g, rb = ra + 8;
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
-    unsigned char* panel = dst + (j >> 3) * panel_bytes + (((j & 7) ^ g) << 4) + 4 * t4;
-    *reinterpret_cast<__nv_bfloat162*>(panel + ra * 128) =
-        __floats2bfloat162_rn(acc[4 * j] * mul, acc[4 * j + 1] * mul);
-    *reinterpret_cast<__nv_bfloat162*>(panel + rb * 128) =
-        __floats2bfloat162_rn(acc[4 * j + 2] * mul, acc[4 * j + 3] * mul);
-  }
-}
-
-// rows [r0, r0 + 64) of a [S, D] slab from the staged, swizzled rows `src`,
-// in 16-byte pieces, for the rows before S
-template <int D>
-__device__ __forceinline__ void copy_out(bf16* dst, const unsigned char* src, int panel_bytes,
-                                         int r0, int S, int tid) {
-  constexpr int CH = D / 8;
-#pragma unroll
-  for (int i = 0; i < 64 * CH / 128; ++i) {
-    const int c = tid + i * 128, r = c / CH, cg = c % CH;
-    if (r0 + r < S)
-      *reinterpret_cast<uint4*>(dst + (size_t)(r0 + r) * D + cg * 8) =
-          *reinterpret_cast<const uint4*>(src + (cg >> 3) * panel_bytes + r * 128 +
-                                          (((cg & 7) ^ (r & 7)) << 4));
-  }
-}
-
-// tile(Int<N>{}) for the least N of 8, 16, 32, 64 that covers `live` rows of
-// a streamed tile (the widths the kernels instantiate)
-template <typename Tile>
-__device__ __forceinline__ void with_width(int live, Tile&& tile) {
-  if (live > 32) tile(Int<64>{});
-  else if (live > 16) tile(Int<32>{});
-  else if (live > 8) tile(Int<16>{});
-  else tile(Int<8>{});
-}
 
 // ---- pass 1: dQ, and rowsum(dO * O) for pass 2
 
@@ -1068,41 +765,6 @@ flash_mma_bwd_dkdv_kernel(const __grid_constant__ DkdvParams p) {
 }
 
 // ---- host: tensor maps and launches
-
-using EncodeTiled = decltype(&cuTensorMapEncodeTiled);
-
-EncodeTiled encoder() {
-  static EncodeTiled fn = [] {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr,
-                                                             12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(ptr) : nullptr;
-  }();
-  return fn;
-}
-
-constexpr int ENCODE_FAILED = 10000;  // + the CUresult of a map that did not encode
-
-// [BH, S, D] bf16 in boxes of [1, rows, 64], 128-byte swizzle, rows past S
-// zero-filled
-int map_rows(EncodeTiled enc, CUtensorMap* m, const void* ptr, int BH, int S, int D, int rows) {
-  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)BH};
-  const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)S * D * 2};
-  const cuuint32_t box[3] = {PANEL, (cuuint32_t)rows, 1};
-  const cuuint32_t unit[3] = {1, 1, 1};
-  const CUresult r = enc(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
-                         strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : ENCODE_FAILED + (int)r;
-}
 
 // both passes' maps and scalars; returns 0 or ENCODE_FAILED + a CUresult
 template <int D>

@@ -4,8 +4,10 @@ Replaces ``repro.kernels.flash_attention.flash_attention`` (Pallas). Two
 kernels compute it; which one serves a call is a pure function of (dtype,
 head dim), ``kernel_for``:
 
-- ``csrc/flash_attention_mma.cu``: bf16 tensor cores (``mma.sync``), bf16 at
-  D 64 and 128 (the ViT blocks and the LM prefill);
+- ``csrc/flash_attention_mma.cu``: bf16 tensor cores (``wgmma`` for every
+  product, K/V tiles by TMA from a producer warp into an ``mbarrier`` ring,
+  one or two consumer warpgroups of 64 query rows), bf16 at D 64 and 128
+  (the ViT blocks, the LM prefill, dit and flux, the training forward);
 - ``csrc/flash_attention.cu``: 3xTF32 tensor cores (``mma.sync`` m16n8k8,
   each f32 operand split into two TF32 terms, which keeps f32 accuracy), f32
   at every head dim and bf16 at D 16 and 32.

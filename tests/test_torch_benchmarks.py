@@ -198,7 +198,11 @@ def test_kernel_bounds_reproduce_perf_md():
     decode_attention_mma at starcoder2's decode 0.0027 ms (bytes), the flash
     backward at the vit-l16 train call 0.1103 ms (bf16 operations), the f32
     decode kernel at starcoder2's f32 decode 0.0054 ms and over the full
-    8192 and 32768 caches 0.0401 and 0.0200 ms (bytes)."""
+    8192 and 32768 caches 0.0401 and 0.0200 ms (bytes); flash_attention_mma
+    at flux-dev gen_1024's two calls 1.0553 and 0.4690 ms (bf16 operations),
+    the qwen3-moe causal prefill 0.0801 ms and the vit-l16 train forward
+    0.0452 ms (bytes), dit-s2 with the bias 0.1042 ms (bf16 operations), the
+    Janus path's B=1 frame 0.0014 ms (bytes)."""
     from repro_torch.benchmarks import kernel_bench, timing
 
     cases = {c.label: c for c in kernel_bench.CASES}
@@ -208,7 +212,13 @@ def test_kernel_bounds_reproduce_perf_md():
                             ("vit_l16_train_bwd_bf16", 0.1103, "operations"),
                             ("starcoder2_decode_f32", 0.0054, "bytes"),
                             ("long_cache_b8_f32", 0.0401, "bytes"),
-                            ("long_cache_b1_f32", 0.0200, "bytes")):
+                            ("long_cache_b1_f32", 0.0200, "bytes"),
+                            ("flux_gen1024_bf16", 1.0553, "operations"),
+                            ("flux_1536_bf16", 0.4690, "operations"),
+                            ("qwen3_prefill_causal_bf16", 0.0801, "bytes"),
+                            ("vit_l16_train_fwd_bf16", 0.0452, "bytes"),
+                            ("dit_s2_bias_bf16", 0.1042, "operations"),
+                            ("vit_b1_bias_bf16", 0.0014, "bytes")):
         ms, got_by = cases[label].bound()
         assert got_by == by and ms == pytest.approx(want, rel=0.01), label
     # the moved helper: 2·B·Na·Nb·D f32 operations against the bytes
@@ -219,7 +229,18 @@ def test_kernel_bounds_reproduce_perf_md():
         "tome_scores", "flash_attention", "decode_attention", "flash_attention_mma",
         "flash_attention_mma", "decode_attention_mma", "flash_attention_mma_bwd",
         "flash_attention_mma_bwd", "flash_attention_bwd", "flash_attention_bwd"] + [
-        "decode_attention"] * 5
+        "decode_attention"] * 5 + ["flash_attention_mma"] * 6
+
+
+def test_kernel_bench_times_giant_plain_flash_versions_back_to_back():
+    """A plain flash version whose f32 scores pass 2 GiB (flux-dev gen_1024's
+    8.2 GB, its [16,24,1536,128] call's 3.6 GB) stalls the host on its
+    allocations, so it is timed back to back; every other row's plain version
+    is queued."""
+    from repro_torch.benchmarks import kernel_bench
+
+    back_to_back = [c.label for c in kernel_bench.CASES if not c.plain_queued()]
+    assert back_to_back == ["flux_gen1024_bf16", "flux_1536_bf16"]
 
 
 def test_benches_refuse_to_time_without_a_card(capsys):

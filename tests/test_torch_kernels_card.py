@@ -92,12 +92,15 @@ def _check_decode(q, k, v, lengths):
     (2, 3, 64, 64, 32), (1, 2, 100, 100, 16), (1, 4, 257, 257, 64),
     (1, 1, 7, 200, 64), (2, 2, 130, 77, 128), (8, 16, 577, 577, 64),
     (1, 2, 577, 7, 64), (2, 2, 7, 200, 128), (2, 3, 300, 130, 64), (1, 2, 577, 7, 128),
+    (1, 1, 1, 577, 128), (1, 1, 65, 129, 64), (40, 4, 129, 577, 128),
 ])
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_kernel_matches_plain_on_card(cuda, b, h, sq, sk, d, causal, dtype):
     """Ragged tiles on both axes (Sq=577 over Sk=7, Sq=7 over Sk=200), Sq > Sk
-    with the causal mask (rows that see no key), -inf bias pads, kv_len."""
+    with the causal mask (rows that see no key), -inf bias pads, kv_len; B*H
+    = 1, and a grid of two-warpgroup blocks ([40,4,129,577] in bf16 at
+    D=128)."""
     gen, q, k, v, bias = _flash_case(cuda, b, h, sq, sk, d, dtype)
     kv_len = torch.randint(1, sk + 1, (b,), generator=gen, device=cuda, dtype=torch.int32)
     for kw in ({}, {"bias": bias}, {"kv_len": kv_len}, {"bias": bias, "kv_len": kv_len}):
@@ -149,6 +152,86 @@ def test_flash_mma_diffusion_shapes_on_card(cuda, b, h, s, d, with_bias):
         sizes = torch.randint(1, 9, (b, s), generator=gen, device=cuda).float()
         bias = torch.log(sizes)
     _check_flash(q, k, v, bias=bias)
+
+
+# the tensor-core forward's two block shapes: one consumer warpgroup (64 query
+# rows) on a small grid, two (128 rows; 128-key tiles at D=128) when 128-row
+# blocks give every SM one (B*H*ceil(Sq/128) >= 132 on the H100)
+MMA_FWD_GRIDS = {"one-warpgroup": (1, 1), "two-warpgroups": (4, 40)}
+MMA_FWD_LENGTHS = ((1, 1), (65, 65), (129, 129), (577, 577), (1, 577), (129, 577), (577, 129),
+                   (540, 520), (300, 560))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sq,sk", MMA_FWD_LENGTHS, ids=[f"{a}x{b}" for a, b in MMA_FWD_LENGTHS])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("grid", list(MMA_FWD_GRIDS))
+def test_flash_mma_ragged_lengths_on_card(cuda, grid, d, sq, sk):
+    """Lengths that are multiples of neither block (64 or 128 query rows) nor
+    key tile (64 or 128): trimmed tails of 8 to 64 keys and a full masked one,
+    a last block whose second warpgroup has no row, Sq < Sk and Sq > Sk under
+    the causal mask, B*H = 1; plain, with the bias (-inf pads), causal, with
+    kv_len < Sk, and all together."""
+    b, h = MMA_FWD_GRIDS[grid]
+    gen, q, k, v, bias = _flash_case(cuda, b, h, sq, sk, d, torch.bfloat16, seed=sq + sk + d)
+    kv_len = torch.randint(max(1, sk // 2), sk + 1, (b,), generator=gen, device=cuda,
+                           dtype=torch.int32)
+    for kw in ({}, {"bias": bias}, {"causal": True}, {"kv_len": kv_len},
+               {"bias": bias, "kv_len": kv_len, "causal": True}):
+        _check_flash(q, k, v, **kw)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("grid", list(MMA_FWD_GRIDS))
+def test_flash_mma_masked_rows_and_lse_on_card(cuda, grid, d, causal):
+    """A bias of -1e30 (the clamp) and of -inf, a member whose bias is -inf
+    everywhere, one with kv_len 0 and one with kv_len < Sk beside live ones,
+    and (causal, Sq > Sk) rows that see no key: such rows output 0 and their
+    lse is +inf; every other row's lse is the plain log-sum-exp of its
+    scaled, clamped, masked scores (f32, within 1e-5), and the output with
+    the lse written is the output without it, bit for bit."""
+    b, h = MMA_FWD_GRIDS[grid]
+    b = max(b, 4)
+    sq, sk = (300, 200) if causal else (200, 300)
+    gen, q, k, v, bias = _flash_case(cuda, b, h, sq, sk, d, torch.bfloat16, seed=41 + d)
+    bias[:, 10:40] = -1e30
+    bias[1] = -torch.inf
+    kv_len = torch.full((b,), sk, dtype=torch.int32, device=cuda)
+    kv_len[0], kv_len[2] = 0, sk // 3
+    out = _check_flash(q, k, v, bias=bias, kv_len=kv_len, causal=causal)
+    out_lse, lse = flash_mod._forward(q, k, v, bias, kv_len, causal, True)
+    torch.cuda.synchronize()
+    assert torch.equal(out, out_lse) and lse.shape == q.shape[:3]
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) / d ** 0.5
+    s = s + bias.clamp_min(ref.NEG)[:, None, None, :]
+    kpos, qpos = torch.arange(sk, device=cuda), torch.arange(sq, device=cuda)
+    mask = (kpos[None, :] < kv_len[:, None])[:, None, None, :]
+    if causal:
+        mask = mask & (qpos[:, None] + (sk - sq) >= kpos[None, :])
+    s = s.masked_fill(~mask, -torch.inf)
+    seen = s.amax(-1) > 0.5 * ref.NEG
+    assert not seen[:2].any() and seen[2:].any()
+    assert torch.all(out[~seen] == 0)
+    assert torch.all(torch.isinf(lse[~seen]) & (lse[~seen] > 0))
+    torch.testing.assert_close(lse[seen], torch.logsumexp(s, dim=-1)[seen], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,h,s,d,causal", [(4, 24, 4608, 128, False), (8, 32, 1024, 128, True),
+                                            (32, 16, 577, 64, False), (1, 16, 577, 64, False)],
+                         ids=["flux-gen1024", "qwen3-prefill", "vit-l16-train", "vit-b1"])
+def test_flash_mma_forward_runs_are_bit_equal_on_card(cuda, b, h, s, d, causal):
+    """No atomics: two runs of the forward give the same output and lse bits,
+    at flux-dev gen_1024's call, the qwen3 causal prefill, the vit-l16 train
+    call (two warpgroups a block) and a ViT frame (one)."""
+    _, q, k, v, _ = _flash_case(cuda, b, h, s, s, d, torch.bfloat16, seed=43)
+    first = flash_mod._forward(q, k, v, None, None, causal, True)
+    second = flash_mod._forward(q, k, v, None, None, causal, True)
+    torch.cuda.synchronize()
+    assert torch.isfinite(first[0]).all() and torch.isfinite(first[1]).all()
+    assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
 
 
 @pytest.mark.gpu
