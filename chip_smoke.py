@@ -10,14 +10,16 @@ each failing the run on any failed check:
 
 1. device:  the card's name and power limit (nvidia-smi) and torch's name;
 2. build:   nvcc builds every kernel library from ``src/repro_torch/kernels/csrc``
-            and prints each kernel's ptxas registers, spills and shared memory;
-            the tensor-core kernels and tome_scores must not spill (the
-            tensor-core flash backward not at D=64: its D=128 spill is
-            printed), nor the 3xTF32 flash kernels at D <= 64, nor the f32
-            decode kernel at any instantiation; the dynamic shared memory and
-            blocks per SM of those and of the tensor-core flash forward are
-            printed for each instantiation, and ptxas may not serialise the
-            forward's wgmmas;
+            and prints each kernel's ptxas registers, stack frame, spills and
+            shared memory; the tensor-core kernels and tome_scores must not
+            spill (the tensor-core flash backward not at D=64: its D=128
+            spill is printed), nor the 3xTF32 flash kernels at D <= 64, nor
+            the f32 decode kernel at any instantiation; the dynamic shared
+            memory and blocks per SM of those, of the tensor-core flash
+            forward, of tome_scores' large-grid route and of the one-launch
+            tensor-core decode kernel are printed for each instantiation,
+            ptxas may not serialise the forward's wgmmas, and the last two
+            may keep no stack frame;
 3. kernels: each kernel against its plain PyTorch version on the card at the
             main paths' shapes, and timed beside its plain version, one
             library call computing the same function, and its bound. Flash
@@ -39,12 +41,15 @@ each failing the run on any failed check:
             read above that share. tome_scores at B=1 and B=8 and at dit-s2's
             first, second and last merge layers ([4,2048,64] against
             [4,2048,64], [4,1571,64] against [4,1570,64], [4,1022,64]
-            against [4,1022,64]). decode_attention has
+            against [4,1022,64]), where the large-grid route serves and
+            must give the small-grid route's (max, index) bit for bit.
+            decode_attention has
             two kernels too, chosen by dtype: the tensor-core one (bf16) and
             the CUDA-core one (f32), both timed at the LM decode shape, the
             MoE decode shapes (group 8 at D=128, group 3 at D=64) and two
             longer caches, and at the LM decode shape also with the L2
-            flushed before each call. tome_scores and decode_attention are timed with
+            flushed before each call; the profiler must see one kernel a
+            tensor-core decode call. tome_scores and decode_attention are timed with
             the calls queued behind a sleep kernel (the card's time per call,
             the host's per-call overhead hidden) and back to back as queued
             by the host;
@@ -273,10 +278,10 @@ def main() -> int:
         for line in ptxas_summary(_build.build_log(name)):
             print(f"[build] {name}: {line}")
     # instantiations: flash_mma D=64 with one consumer warpgroup, D=128 with
-    # one and two; tome D 16/32/64/128; decode_mma the split and combine
-    # passes at D 64/128
-    for name, n_lines in (("flash_attention_mma", 3), ("tome_scores", 4),
-                          ("decode_attention_mma", 4)):
+    # one and two; tome's small-grid route at D 16/32/64/128 and its
+    # large-grid route at D 64/128; decode_mma (one kernel) at D 64/128
+    for name, n_lines in (("flash_attention_mma", 3), ("tome_scores", 6),
+                          ("decode_attention_mma", 2)):
         lines = ptxas_summary(_build.build_log(name))
         check(len(lines) == n_lines and all(" 0 B spill stores, 0 B spill loads" in line
                                             for line in lines),
@@ -294,6 +299,7 @@ def main() -> int:
     flash_mma_bwd_occupancy()
     flash_tf32_occupancy()
     decode_occupancy()
+    tome_decode_mma_occupancy()
 
     from repro_torch.runtime.device import parity_numerics
     parity_numerics()  # f32 plain versions and f32 phases must not use TF32
@@ -476,10 +482,40 @@ def decode_occupancy() -> None:
               f"{smem.value} B dynamic shared memory, {blocks.value} blocks/SM")
 
 
+def tome_decode_mma_occupancy() -> None:
+    """tome_scores' large-grid route (D 64 and 128) and the one-launch
+    tensor-core decode kernel (``decode_attention_mma``, D 64 and 128): each
+    instantiation's ptxas line (``ptxas_summary``), its dynamic shared memory
+    and the blocks of it an SM holds at once, from the libraries' occupancy
+    entries (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``). None may
+    spill or keep a stack frame, and ptxas may serialise nothing (C7511)."""
+    import ctypes
+    from repro_torch.kernels import _build
+    for name, entry, pattern in (
+            ("tome_scores", "tome_scores_large_occupancy", r"tome_scores_large_kernel<(\d+)>"),
+            ("decode_attention_mma", "decode_attention_mma_occupancy",
+             r"decode_mma_kernel<(\d+)>")):
+        lib, log = _build.load(name), _build.build_log(name)
+        lines = [line for line in ptxas_summary(log) if re.match(pattern, line)]
+        check(len(lines) == 2, f"ptxas printed {len(lines)} lines for {pattern}")
+        serialised = [line.strip() for line in log.splitlines() if "C7511" in line]
+        check(not serialised, f"ptxas serialises {name}: " + "; ".join(serialised))
+        for line in lines:
+            check(" 0 B stack frame, 0 B spill stores, 0 B spill loads" in line,
+                  f"{name} spills or keeps a stack frame: {line}")
+            d = int(re.match(pattern, line).group(1))
+            smem, blocks = ctypes.c_int(), ctypes.c_int()
+            err = getattr(lib, entry)(d, ctypes.byref(smem), ctypes.byref(blocks))
+            check(err == 0, f"{entry}({d}): cudaError {err}")
+            print(f"[build] {name}: {line.split(':')[0]} {smem.value} B dynamic shared memory, "
+                  f"{blocks.value} blocks/SM")
+
+
 def ptxas_summary(log: str) -> list[str]:
     """One line per kernel instantiation of nvcc's -Xptxas -v output:
-    ``name<type,D>: registers, spill stores/loads, shared memory``."""
-    out, name, spill = [], "?", (0, 0)
+    ``name<type,D>: registers, stack frame, spill stores/loads, shared
+    memory``."""
+    out, name, spill, frame = [], "?", (0, 0), 0
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '\w*?\d+([a-z_]+_kernel)I(\w*?)EEv", line)
         if m:
@@ -488,11 +524,13 @@ def ptxas_summary(log: str) -> list[str]:
             name = f"{m.group(1)}<{args}>"
         elif "spill stores" in line:
             spill = tuple(int(n) for n in re.findall(r"(\d+) bytes spill", line))
+            found = re.search(r"(\d+) bytes stack frame", line)
+            frame = int(found.group(1)) if found else 0
         elif "registers" in line:
             regs = re.search(r"Used (\d+) registers", line).group(1)
             smem = re.search(r"(\d+) bytes smem", line)
-            out.append(f"{name}: {regs} registers, {spill[0]} B spill stores, {spill[1]} B "
-                       f"spill loads, {smem.group(1) if smem else 0} B smem")
+            out.append(f"{name}: {regs} registers, {frame} B stack frame, {spill[0]} B spill "
+                       f"stores, {spill[1]} B spill loads, {smem.group(1) if smem else 0} B smem")
     return out
 
 
@@ -503,6 +541,7 @@ def zero_counts() -> None:
     for mod in (decode_attention, flash_attention, tome_scores):
         mod.launches = 0
     flash_attention.launches_mma = decode_attention.launches_mma = 0
+    tome_scores.launches_large = 0
     flash_attention.launches_bwd = flash_attention.launches_bwd_mma = 0
     moe_a2a.collectives = 0
 
@@ -572,11 +611,13 @@ def cuda_core_flash(torch, flash_mod, q, k, v, bias, causal):
 def bench_row(bench: list[dict], case) -> dict | None:
     """kernel_bench's record of the same call as ``case`` (a
     ``kernel_bench.Case``), or None: [kernels] takes such a call's times from
-    it rather than timing the call a second time."""
+    it rather than timing the call a second time (a row that forced a
+    tome_scores route is not the path's call)."""
     for r in bench:
         if (r["kernel"], tuple(r["shape"]), r["dtype"], r["causal"], r["bias"],
-                r["length"]) == (case.kernel(), case.shape, str(case.dtype)[6:], case.causal,
-                                 case.bias, case.length):
+                r["length"], r.get("forced_route")) == (case.kernel(), case.shape,
+                                                    str(case.dtype)[6:], case.causal,
+                                                    case.bias, case.length, None):
             return r
     return None
 
@@ -800,6 +841,15 @@ def kernel_phase(torch, bench: list[dict]) -> list[dict]:
         for nb_len in (False, True):
             err, a, bb = tome_case(b, nb_len, na, nb)
             tome_err = max(tome_err, err)
+        # the two routes: the same fmaf chains, the same (max, index) bit for bit
+        nbl = torch.randint(1, nb + 1, (b,), generator=gen, device=dev, dtype=torch.int32)
+        small, large = (tome_mod.tome_scores(a, bb, nbl, route=r)
+                        for r in (tome_mod.SMALL, tome_mod.LARGE))
+        same = all(torch.equal(x, y) for x, y in zip(small, large))
+        print(f"[kernels] tome_scores B={b} Na={na} Nb={nb}: the path takes the "
+              f"{tome_mod.route_for(b, na, nb, d)} route; small and large routes with nb_len "
+              f"{'bit-equal' if same else 'DIFFER'}")
+        check(same, f"tome_scores' routes differ at B={b} Na={na} Nb={nb}")
 
     one = torch.zeros(1, device=dev)
     floor = time_ms(lambda: one.add_(1), queued=True)
@@ -933,6 +983,10 @@ def decode_kernel_phase(torch, bench: list[dict]) -> list[dict]:
             row = dict(shape=shape, ms=ms, plain_ms=plain, library_ms=lib,
                        host_ms=time_ms(wrapper), library_host_ms=time_ms(library),
                        device_us=device_us(torch, wrapper))
+            if kernel == decode_mod.MMA:  # the splits are combined in the same launch
+                check(list(row["device_us"]) == ["decode_mma_kernel"],
+                      f"{kernel} {shape}: the profiler saw {row['device_us']}, not one "
+                      "kernel a call")
             row["bound_ms"], row["bound_by"] = case.bound()
             extra = ""
             if (s, hq, hkv) == (LM_CAPACITY, 24, 2):
@@ -945,7 +999,7 @@ def decode_kernel_phase(torch, bench: list[dict]) -> list[dict]:
                   f"{plain:.4f} ms, sdpa(enable_gqa, mask) {lib:.4f} ms ({ms / lib:.2f}x; "
                   f"max|sdpa-plain|={lib_err:.2e}), bound {row['bound_ms']:.4f} ms "
                   f"({row['bound_by']}, {case.nbytes() / 1e6:.1f} MB), splits "
-                  f"{decode_mod.n_splits(b, hq, hkv, s, kernel)}{extra}; back to back from the "
+                  f"{decode_mod.n_splits(b, hq, hkv, s, dd, kernel)}{extra}; back to back from the "
                   f"host: kernel {row['host_ms']:.4f} ms, sdpa {row['library_host_ms']:.4f} ms; "
                   f"on the card per launch (profiler): {fmt_us(row['device_us'])}")
             timings[kernel].append(row)
@@ -1363,8 +1417,9 @@ def trace_phase(torch, cfg, params, images) -> None:
 
 
 PORT_KERNEL = re.compile(r"\b(flash_mma_fwd|flash_fwd|flash_mma_bwd_dq|flash_mma_bwd_dkdv|"
-                         r"flash_bwd_dq|flash_bwd_dkdv|tome_scores|decode_mma_partial|"
-                         r"decode_mma_combine|decode_partial|decode_combine)_kernel\b")
+                         r"flash_bwd_dq|flash_bwd_dkdv|tome_scores|tome_scores_large|"
+                         r"decode_mma|decode_partial|decode_combine)_kernel\b")
+DECODE_MMA_KERNEL = re.compile(r"\bdecode_mma_kernel\b")
 
 
 FLASH_BWD_KERNEL = re.compile(r"\bflash_(mma_)?bwd_(dq|dkdv)_kernel\b")
@@ -2006,10 +2061,21 @@ def trace_serving(torch, tag: str, cfg, params, state: dict, moe_split: bool = F
     kernel time (``profile_once``)."""
     from repro_torch.models import lm
 
+    from torch.autograd import DeviceType
+
     index = LM_PROMPT + state["steps"]
     tok, cache, tokens = state.pop("tok"), state.pop("cache"), state.pop("tokens")
-    profile_once(torch, f"{tag} decode step B={LM_BATCH} at cache length {index + 1}",
-                 lambda: lm.decode_step(params, cfg, tok, cache, index), moe_split)
+    label = f"{tag} decode step B={LM_BATCH} at cache length {index + 1}"
+    prof, _, _ = profile_once(torch, label,
+                              lambda: lm.decode_step(params, cfg, tok, cache, index), moe_split)
+    decode = [ev for ev in prof.events()
+              if ev.device_type == DeviceType.CUDA and DECODE_MMA_KERNEL.search(ev.name)]
+    if cfg.dtype == torch.bfloat16 and any(ev.device_type == DeviceType.CUDA
+                                           for ev in prof.events()):
+        print(f"[trace] {label}: decode_attention_mma {len(decode)} kernels on the card for "
+              f"{cfg.n_layers} layers (one launch a call: the splits combined in it)")
+        check(len(decode) == cfg.n_layers, f"{tag}: {len(decode)} decode kernels in a step of "
+                                           f"{cfg.n_layers} layers")
     del cache
     profile_once(torch, f"{tag} prefill B={LM_BATCH} x {LM_PROMPT} tokens",
                  lambda: lm.prefill(params, cfg, tokens, max_len=LM_CAPACITY), moe_split)
@@ -2502,6 +2568,7 @@ def dit_phase(torch) -> tuple[dict[str, int], dict[str, int]]:
     zeroed just before each run and read just after (flash_mma 12 a step,
     tome_scores one a merge layer and step). Then torch.profiler over one
     dense and one Janus forward."""
+    from repro_torch.kernels import tome_scores as tome_mod
     from repro_torch.models import dit, param
     from repro_torch.training import diffusion
 
@@ -2529,6 +2596,7 @@ def dit_phase(torch) -> tuple[dict[str, int], dict[str, int]]:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts[label] = read_counts()
+        large = tome_mod.launches_large
         exp = _expect(flash_attention_mma=cfg.n_layers * steps,
                       tome_scores=merges * steps if s else 0)
         finals[label] = x.float()
@@ -2539,6 +2607,9 @@ def dit_phase(torch) -> tuple[dict[str, int], dict[str, int]]:
               f"dit {label} output shape")
         check(bool(torch.isfinite(x).all()), f"non-finite dit {label} samples")
         check(counts[label] == exp, f"dit {label} launch counts")
+        print(f"[dit] {label}: tome_scores on its large-grid route {large} of "
+              f"{counts[label]['tome_scores']} launches")
+        check(large == counts[label]["tome_scores"], f"dit {label}: merges off the large route")
     gap = (finals["janus"] - finals["dense"]).abs().max() / finals["dense"].abs().max()
     print(f"[dit] Janus vs dense samples: max|d| / max|dense| {gap.item():.4f}")
     x0 = torch.randn((b, cfg.latent_res, cfg.latent_res, cfg.latent_channels), device="cuda",

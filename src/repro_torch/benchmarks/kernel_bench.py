@@ -34,14 +34,22 @@ Part 5: flash_attention_mma where it lost most to SDPA: flux-dev
 ``gen_1024`` [4,24,4608,128] and [16,24,1536,128], the qwen3-moe prefill
 [8,32,1024,128] causal, vit-l16 ``cls_384``'s train forward [32,16,577,64],
 dit-s2 ``gen_1024`` [4,6,4096,64] with the log-size bias, and the Janus
-path's one-frame call [1,16,577,64] with the bias.
+path's one-frame call [1,16,577,64] with the bias. Part 6: tome_scores
+at dit-s2's first, second (with
+``nb_len``) and last merges at ``gen_1024`` (its large-grid route) and at the
+ViT's B=1 and B=8 calls on both routes (``route`` forces one: where the
+threshold ``tome_scores.LARGE_MIN_WORK`` sits); decode_attention_mma at the
+MoE paths' last steps (qwen3-moe group 8, granite-moe group 3 at D=64) and
+the two long full caches of part 4 in bf16.
 
 ``rows()`` keeps the reference's ``(name, us_per_call, derived)`` shape:
 the kernel's µs a call and its bound in µs. Without a card it refuses: no
 CPU time is ever written under a kernel's name.
 
   python -m repro_torch.benchmarks.kernel_bench   (on the card)
-  (writes experiments/torch/bench/BENCH_kernel.json)
+  (writes experiments/torch/bench/BENCH_kernel.json; ``--labels a,b`` runs
+  those rows only, e.g. against an older checkout's wrapper, which takes no
+  ``route``)
 """
 from __future__ import annotations
 
@@ -93,8 +101,9 @@ class Case:
     flash and flash_bwd (its backward): ``shape`` = (B, H, S, D),
     ``causal``, ``bias`` (a [B, S] log-size bias; flash only); decode:
     ``shape`` = (B, Hq, Hkv, S, D), ``length`` (valid cache entries); tome:
-    ``shape`` = (B, Na, Nb, D), always f32. The backward's FLOPs and bytes
-    are the counter's own, ``ops.flash_bwd_cost``."""
+    ``shape`` = (B, Na, Nb, D), always f32, ``length`` its ``nb_len`` (0:
+    none), ``route`` a forced route (None: ``tome_scores.route_for``'s). The
+    backward's FLOPs and bytes are the counter's own, ``ops.flash_bwd_cost``."""
     label: str
     family: str
     shape: tuple[int, ...]
@@ -102,6 +111,7 @@ class Case:
     causal: bool = False
     bias: bool = False
     length: int = 0
+    route: str | None = None
 
     @property
     def peak(self) -> float:
@@ -122,8 +132,8 @@ class Case:
         if self.family == "decode":
             b, hq, _, _, d = self.shape
             return 4.0 * b * hq * self.length * d
-        b, na, nb, d = self.shape
-        return 2.0 * b * na * nb * d
+        b, na, nb, d = self.shape  # the valid columns' scores
+        return 2.0 * b * na * (self.length or nb) * d
 
     def nbytes(self) -> float:
         elt = torch.finfo(self.dtype).bits // 8
@@ -135,8 +145,8 @@ class Case:
         if self.family == "decode":  # the valid cache read once, q read, out written
             b, hq, hkv, _, d = self.shape
             return (2.0 * b * self.length * hkv * d + 2 * b * hq * d) * elt + b * 4
-        b, na, nb, d = self.shape  # a and b read; max (f32) and index (int32) written
-        return (b * na * d + b * nb * d) * 4.0 + b * na * 8
+        b, na, nb, d = self.shape  # a and b's valid rows read; max (f32), index (int32) written
+        return (b * na * d + b * (self.length or nb) * d) * 4.0 + b * na * 8
 
     def bound(self) -> tuple[float, str]:
         return bound(self.flops(), self.nbytes(), self.peak)
@@ -195,6 +205,20 @@ CASES = (
     Case("vit_l16_train_fwd_bf16", "flash", (32, 16, 577, 64), torch.bfloat16),
     Case("dit_s2_bias_bf16", "flash", (4, 6, 4096, 64), torch.bfloat16, bias=True),
     Case("vit_b1_bias_bf16", "flash", (1, 16, 577, 64), torch.bfloat16, bias=True),
+    # part 6: tome_scores at dit-s2's merges (the large-grid route) and at the
+    # ViT's calls on both routes; decode_attention_mma at the MoE paths' last
+    # steps and the long caches
+    Case("dit_merge0_f32", "tome", (4, 2048, 2048, 64), torch.float32),
+    Case("dit_merge1_nb_len_f32", "tome", (4, 1571, 1570, 64), torch.float32, length=1500),
+    Case("dit_merge11_f32", "tome", (4, 1022, 1022, 64), torch.float32),
+    Case("vit_b1_tome_f32", "tome", (1, 289, 288, 64), torch.float32),
+    Case("vit_b1_tome_large_f32", "tome", (1, 289, 288, 64), torch.float32, route="large"),
+    Case("vit_b8_tome_large_f32", "tome", (8, 289, 288, 64), torch.float32, route="large"),
+    Case("qwen3_decode_bf16", "decode", (8, 32, 4, 2048, 128), torch.bfloat16, length=1088),
+    Case("granite_decode_bf16", "decode", (8, 24, 8, 2048, 64), torch.bfloat16, length=1040),
+    Case("long_cache_b8_bf16", "decode", (8, 24, 2, 8192, 128), torch.bfloat16, length=8192),
+    Case("long_cache_b1_bf16", "decode", (1, 24, 2, 32768, 128), torch.bfloat16,
+         length=32768),
 )
 
 
@@ -258,11 +282,14 @@ def _calls(case: Case, gen: torch.Generator):
     b, na, nb, d = case.shape
     a = F.normalize(torch.randn((b, na, d), generator=gen, device=dev), dim=-1)
     bb = F.normalize(torch.randn((b, nb, d), generator=gen, device=dev), dim=-1)
-    return (lambda: tome_mod.tome_scores(a, bb),
-            lambda: ref.tome_scores_ref(a, bb),
-            lambda: torch.bmm(a, bb.transpose(1, 2)).max(-1),
-            TOME_MAX, "torch.bmm(a, b.transpose(1, 2)).max(-1)",
-            lambda got, want: tome_close(a, bb, None, got, want))
+    nbl = torch.full((b,), case.length, dtype=torch.int32, device=dev) if case.length else None
+    route = {} if case.route is None else {"route": case.route}
+    valid = bb[:, :case.length or nb]  # every member's valid columns: the same count
+    return (lambda: tome_mod.tome_scores(a, bb, nbl, **route),
+            lambda: ref.tome_scores_ref(a, bb, nbl),
+            lambda: torch.bmm(a, valid.transpose(1, 2)).max(-1),
+            TOME_MAX, "torch.bmm(a, b[:, :nb_len].transpose(1, 2)).max(-1)",
+            lambda got, want: tome_close(a, bb, nbl, got, want))
 
 
 def flash_close(got, want) -> tuple[float, bool]:
@@ -327,6 +354,7 @@ def measure(cases=CASES) -> list[dict]:
                     "kernel": case.kernel(),
                     "shape": list(case.shape), "dtype": str(case.dtype).removeprefix("torch."),
                     "causal": case.causal, "bias": case.bias, "length": case.length,
+                    "forced_route": case.route,
                     "max_abs_err": err, "tol": tol, "timing": "queued",
                     "plain_timing": "queued" if case.plain_queued() else "back to back",
                     "ms": ms, "plain_ms": plain_ms, "library": library_name,
@@ -343,10 +371,16 @@ def rows():
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=common.out_path("BENCH_kernel.json"))
+    ap.add_argument("--labels", default="", help="comma-separated row labels (default: all)")
     args = ap.parse_args(argv)
-    records = measure()
+    labels = [x for x in args.labels.split(",") if x]
+    unknown = sorted(set(labels) - {c.label for c in CASES})
+    if unknown:
+        ap.error(f"unknown row labels {unknown}")
+    records = measure([c for c in CASES if not labels or c.label in labels])
     for r in records:
         cold = f", L2 flushed {r['cold_l2_ms']:.4f} ms" if "cold_l2_ms" in r else ""
+        cold += f", {r['forced_route']} route forced" if r["forced_route"] else ""
         print(f"{r['name']}: kernel {r['ms']:.4f} ms{cold}, plain {r['plain_ms']:.4f} ms, "
               f"library {r['library_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms "
               f"({r['bound_by']}), max_abs_err {r['max_abs_err']:.3e}")

@@ -1,6 +1,7 @@
 // Hopper building blocks shared by the tensor-core flash kernels
 // (flash_attention_mma.cu, the forward; flash_attention_mma_bwd.cu, its
-// gradient): mbarriers, TMA tensor copies and the host's tensor maps, wgmma
+// gradient), the large route of tome_scores.cu and decode_attention_mma.cu:
+// mbarriers, TMA tensor copies and the host's tensor maps, wgmma
 // with its shared-memory descriptors, and the element work on the
 // accumulators. Each kernel library is its own translation unit
 // (kernels/_build.py builds csrc/<name>.cu alone), so everything here has
@@ -78,11 +79,36 @@ __device__ __forceinline__ void tma_3d(uint32_t dst, const CUtensorMap* map, uin
                : "memory");
 }
 
+__device__ __forceinline__ void tma_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0,
+                                       int c1, int c2, int c3) {
+  asm volatile("cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+               "[%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+               :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+                  "r"(c2), "r"(c3)
+               : "memory");
+}
+
 // 4-byte asynchronous copy; with valid == false the destination is zero-filled
 // and nothing is read
 __device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool valid) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
                :: "r"(dst), "l"(src), "r"(valid ? 4 : 0) : "memory");
+}
+
+// 16-byte asynchronous copy through L2 only; with valid == false the
+// destination is zero-filled and nothing is read
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(valid ? 16 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
 // one arrival on `bar` once this thread's earlier cp.async copies have landed
@@ -387,7 +413,7 @@ __device__ __forceinline__ void with_width(int live, Tile&& tile) {
 
 using EncodeTiled = decltype(&cuTensorMapEncodeTiled);
 
-EncodeTiled encoder() {
+inline EncodeTiled encoder() {
   static EncodeTiled fn = [] {
     void* ptr = nullptr;
     cudaDriverEntryPointQueryResult found;
@@ -406,18 +432,27 @@ EncodeTiled encoder() {
 
 constexpr int ENCODE_FAILED = 10000;  // + the CUresult of a map that did not encode
 
+// A rank-N tensor of `type` at `ptr`, dims[0] fastest (its extent in bytes
+// 128, the swizzle's span), byte strides of dims 1..N-1, in boxes `box`:
+// 128-byte swizzle, boxes read past a dim zero-filled
+inline int map_tiled(EncodeTiled enc, CUtensorMap* m, CUtensorMapDataType type, int rank,
+                     const void* ptr, const cuuint64_t* dims, const cuuint64_t* strides,
+                     const cuuint32_t* box) {
+  const cuuint32_t unit[5] = {1, 1, 1, 1, 1};
+  const CUresult r = enc(m, type, rank, const_cast<void*>(ptr), dims, strides, box, unit,
+                         CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : ENCODE_FAILED + (int)r;
+}
+
 // [BH, S, D] bf16 in boxes of [1, rows, 64], 128-byte swizzle, rows past S
 // zero-filled
-int map_rows(EncodeTiled enc, CUtensorMap* m, const void* ptr, int BH, int S, int D, int rows) {
+inline int map_rows(EncodeTiled enc, CUtensorMap* m, const void* ptr, int BH, int S, int D,
+                    int rows) {
   const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)BH};
   const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)S * D * 2};
   const cuuint32_t box[3] = {PANEL, (cuuint32_t)rows, 1};
-  const cuuint32_t unit[3] = {1, 1, 1};
-  const CUresult r = enc(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
-                         strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : ENCODE_FAILED + (int)r;
+  return map_tiled(enc, m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, ptr, dims, strides, box);
 }
 
 }  // namespace

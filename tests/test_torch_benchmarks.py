@@ -23,6 +23,10 @@ import numpy as np
 import pytest
 import torch
 
+# -n 6 workers, each running 8 intra-op threads on 8 cores, oversubscribe the CPU
+# (a 2 s case took 150 s among six copies): one thread a worker
+torch.set_num_threads(1)
+
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 # (port module, reference script, flags, artifact file, wall-clock keys dropped)
@@ -65,7 +69,8 @@ def numpy_runs(tmp_path_factory, reference_snapshot):
     """Every numpy bench run by the reference (scripts, concurrently, in
     subprocesses) and by the port (in this process) into two directories."""
     ref_dir, port_dir = tmp_path_factory.mktemp("ref"), tmp_path_factory.mktemp("port")
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu",
+               OMP_NUM_THREADS="1")  # one intra-op thread a process, as in-process
     procs = {name: subprocess.Popen(
         [sys.executable, str(ROOT / "benchmarks" / f"{mod}.py"), *_flags(name, ref_dir)],
         cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
@@ -202,7 +207,11 @@ def test_kernel_bounds_reproduce_perf_md():
     at flux-dev gen_1024's two calls 1.0553 and 0.4690 ms (bf16 operations),
     the qwen3-moe causal prefill 0.0801 ms and the vit-l16 train forward
     0.0452 ms (bytes), dit-s2 with the bias 0.1042 ms (bf16 operations), the
-    Janus path's B=1 frame 0.0014 ms (bytes)."""
+    Janus path's B=1 frame 0.0014 ms (bytes); tome_scores at dit-s2's merges
+    0.0321, 0.0180 (nb_len 1500 of 1570 columns) and 0.0080 ms (f32
+    operations); decode_attention_mma at qwen3-moe's and granite-moe's decode
+    0.0054 and 0.0051 ms and over the full 8192 and 32768 caches 0.0201 and
+    0.0100 ms (bytes)."""
     from repro_torch.benchmarks import kernel_bench, timing
 
     cases = {c.label: c for c in kernel_bench.CASES}
@@ -218,7 +227,14 @@ def test_kernel_bounds_reproduce_perf_md():
                             ("qwen3_prefill_causal_bf16", 0.0801, "bytes"),
                             ("vit_l16_train_fwd_bf16", 0.0452, "bytes"),
                             ("dit_s2_bias_bf16", 0.1042, "operations"),
-                            ("vit_b1_bias_bf16", 0.0014, "bytes")):
+                            ("vit_b1_bias_bf16", 0.0014, "bytes"),
+                            ("dit_merge0_f32", 0.0321, "operations"),
+                            ("dit_merge1_nb_len_f32", 0.0180, "operations"),
+                            ("dit_merge11_f32", 0.0080, "operations"),
+                            ("qwen3_decode_bf16", 0.0054, "bytes"),
+                            ("granite_decode_bf16", 0.0051, "bytes"),
+                            ("long_cache_b8_bf16", 0.0201, "bytes"),
+                            ("long_cache_b1_bf16", 0.0100, "bytes")):
         ms, got_by = cases[label].bound()
         assert got_by == by and ms == pytest.approx(want, rel=0.01), label
     # the moved helper: 2·B·Na·Nb·D f32 operations against the bytes
@@ -229,7 +245,8 @@ def test_kernel_bounds_reproduce_perf_md():
         "tome_scores", "flash_attention", "decode_attention", "flash_attention_mma",
         "flash_attention_mma", "decode_attention_mma", "flash_attention_mma_bwd",
         "flash_attention_mma_bwd", "flash_attention_bwd", "flash_attention_bwd"] + [
-        "decode_attention"] * 5 + ["flash_attention_mma"] * 6
+        "decode_attention"] * 5 + ["flash_attention_mma"] * 6 + [
+        "tome_scores"] * 6 + ["decode_attention_mma"] * 4
 
 
 def test_kernel_bench_times_giant_plain_flash_versions_back_to_back():

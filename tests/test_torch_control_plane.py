@@ -23,6 +23,10 @@ from repro.core.profiler import LinearProfiler as RefLinear
 from repro_torch.core import bandwidth, bucketing, compression, planner, \
     profiler, scheduler
 
+# -n 6 workers, each running 8 intra-op threads on 8 cores, oversubscribe the CPU
+# (a 2 s case took 150 s among six copies): one thread a worker
+torch.set_num_threads(1)
+
 
 def _port_profile(p) -> scheduler.ModelProfile:
     """The same ModelProfile value, built from the port's classes."""

@@ -43,6 +43,10 @@ from repro_torch.models import dit, flux, param
 from repro_torch.models import layers as L
 from repro_torch.training import diffusion
 
+# -n 6 workers, each running 8 intra-op threads on 8 cores, oversubscribe the CPU
+# (a 2 s case took 150 s among six copies): one thread a worker
+torch.set_num_threads(1)
+
 ATOL = 1e-5
 TEMB_ATOL = 5e-5
 SAMPLER_REL = 1.5e-4

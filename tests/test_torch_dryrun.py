@@ -47,6 +47,10 @@ from repro_torch.optim import adamw
 
 from _ranks import ROOT, _env
 
+# -n 6 workers, each running 8 intra-op threads on 8 cores, oversubscribe the CPU
+# (a 2 s case took 150 s among six copies): one thread a worker
+torch.set_num_threads(1)
+
 FAMILY_CELLS = [("vit-b16", "serve_b128"), ("starcoder2-3b", "decode_32k"),
                 ("qwen3-moe-30b-a3b", "train_4k"), ("dit-s2", "gen_fast"),
                 ("flux-dev", "gen_fast"), ("swin-b", "serve_b128"), ("resnet-152", "serve_b128")]

@@ -18,6 +18,11 @@ from _ranks import run_ranks
 from repro_torch.examples import train_e2e
 from repro_torch.launch import train
 from test_torch_train import LOSS_RTOL
+import torch
+
+# -n 6 workers, each running 8 intra-op threads on 8 cores, oversubscribe the CPU
+# (a 2 s case took 150 s among six copies): one thread a worker
+torch.set_num_threads(1)
 
 
 def test_train_e2e_trains_restarts_and_resumes(tmp_path, capsys):

@@ -21,6 +21,11 @@ from repro.core import scheduler as jscheduler
 from repro.launch import serve as jserve
 
 from repro_torch.examples import fleet_serving, janus_serving_e2e, quickstart, workload_scenarios
+import torch
+
+# -n 6 workers, each running 8 intra-op threads on 8 cores, oversubscribe the CPU
+# (a 2 s case took 150 s among six copies): one thread a worker
+torch.set_num_threads(1)
 
 
 def _lines(fn, capsys, monkeypatch) -> list[str]:

@@ -23,6 +23,10 @@ from repro_torch.kernels import flash_attention as flash_mod
 from repro_torch.kernels import ops, ref
 from repro_torch.runtime import hlo_bytes
 
+# -n 6 workers, each running 8 intra-op threads on 8 cores, oversubscribe the CPU
+# (a 2 s case took 150 s among six copies): one thread a worker
+torch.set_num_threads(1)
+
 OF_MAX = 1e-5
 
 

@@ -32,6 +32,10 @@ from repro.kernels import ref as jref
 
 from repro_torch.kernels import ref
 
+# -n 6 workers, each running 8 intra-op threads on 8 cores, oversubscribe the CPU
+# (a 2 s case took 150 s among six copies): one thread a worker
+torch.set_num_threads(1)
+
 OF_MAX = 1e-2
 LOG2E = 1.4426950408889634
 WIDTHS = (8, 16, 32, 64)  # streamed tile widths the kernel instantiates

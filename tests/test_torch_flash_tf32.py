@@ -34,6 +34,10 @@ from repro.kernels import ref as jref
 
 from repro_torch.kernels import ref
 
+# -n 6 workers, each running 8 intra-op threads on 8 cores, oversubscribe the CPU
+# (a 2 s case took 150 s among six copies): one thread a worker
+torch.set_num_threads(1)
+
 ATOL, RTOL = 2e-5, 1e-4  # the f32 flash limits
 BWD_OF_MAX = 1e-4        # the f32 flash backward's limit, of max|g|
 LOG2E = 1.4426950408889634

@@ -35,6 +35,10 @@ from test_torch_engine import _mixed_profile
 from test_torch_engine import _port_profile as _to_port_profile
 from test_torch_serving import _port_profile
 
+# -n 6 workers, each running 8 intra-op threads on 8 cores, oversubscribe the CPU
+# (a 2 s case took 150 s among six copies): one thread a worker
+torch.set_num_threads(1)
+
 KW = dict(img_res=32, patch=8, n_layers=4, d_model=32, n_heads=2, d_ff=64, n_classes=8)
 
 

@@ -32,6 +32,7 @@ sys.exit(1 if bad else 0)
 def _env():
     env = dict(os.environ)
     env["PYTHONPATH"] = str(ROOT / "src")
+    env["OMP_NUM_THREADS"] = "1"  # one intra-op thread a process beside the -n 6 workers
     return env
 
 

@@ -26,6 +26,10 @@ from repro_torch.kernels import flash_attention as flash_mod
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import tome_scores as tome_mod
 
+# -n 6 workers, each running 8 intra-op threads on 8 cores, oversubscribe the CPU
+# (a 2 s case took 150 s among six copies): one thread a worker
+torch.set_num_threads(1)
+
 ATOL, RTOL = 2e-5, 1e-4
 
 
@@ -455,7 +459,7 @@ def test_decode_mma_rounding_points_stay_inside_the_bf16_tolerance(b, hq, hkv, s
     q = _t(_randn(rng, (b, hq, d)), dtype=torch.bfloat16)
     k, v = (_t(_randn(rng, (b, s, hkv, d)), dtype=torch.bfloat16) for _ in "kv")
     lengths = torch.tensor([1, 197, s], dtype=torch.int32)
-    nsplit = decode_mod.n_splits(b, hq, hkv, s, decode_mod.MMA) if nsplit is None else nsplit
+    nsplit = decode_mod.n_splits(b, hq, hkv, s, d, decode_mod.MMA) if nsplit is None else nsplit
     emu = _decode_mma_emulation(q, k, v, lengths, nsplit)
     plain = ref.decode_attention_ref(q, k, v, lengths)
     assert emu.dtype == plain.dtype == torch.bfloat16
@@ -545,7 +549,7 @@ def test_decode_f32_summation_order_stays_inside_the_f32_tolerance(b, hq, hkv, s
     k, v = (_t(_randn(rng, (b, s, hkv, d))) for _ in "kv")
     lengths = torch.tensor([0, 1, 197, s], dtype=torch.int32)
     if nsplit is None:
-        nsplit = decode_mod.n_splits(b, hq, hkv, s, decode_mod.CUDA_CORE)
+        nsplit = decode_mod.n_splits(b, hq, hkv, s, d, decode_mod.CUDA_CORE)
     emu = _decode_f32_emulation(q, k, v, lengths, nsplit)
     plain = ref.decode_attention_ref(q, k, v, lengths)
     torch.testing.assert_close(emu, plain, atol=ATOL, rtol=RTOL)
@@ -557,12 +561,14 @@ def test_decode_f32_summation_order_stays_inside_the_f32_tolerance(b, hq, hkv, s
 
 
 @pytest.mark.parametrize("b,hq,hkv,s,kernel,expect", [
-    # the tensor-core kernel (bf16): the LM path, 17 valid tiles (lengths
-    # 1025..1088) over 8 splits; longer caches; one split when the shapes
-    # alone fill the card
-    (8, 24, 2, 2048, decode_mod.MMA, 8), (8, 24, 2, 8192, decode_mod.MMA, 16),
-    (1, 24, 2, 32768, decode_mod.MMA, 128), (1, 40, 2, 64, decode_mod.MMA, 1),
-    (2, 4, 2, 100, decode_mod.MMA, 1), (2, 8, 2, 2000, decode_mod.MMA, 8),
+    # the tensor-core kernel (bf16, D=128 here): the LM path, 17 valid tiles
+    # (lengths 1025..1088) over 4 splits, one cluster (at least 8 tiles of
+    # capacity a split); longer caches at up to one block an SM, a power of
+    # two (B=1 over 32768 positions: 8 clusters of 8); one split when the
+    # shapes alone fill the card
+    (8, 24, 2, 2048, decode_mod.MMA, 4), (8, 24, 2, 8192, decode_mod.MMA, 8),
+    (1, 24, 2, 32768, decode_mod.MMA, 64), (1, 40, 2, 64, decode_mod.MMA, 1),
+    (2, 4, 2, 100, decode_mod.MMA, 1), (2, 8, 2, 2000, decode_mod.MMA, 4),
     (64, 32, 8, 4096, decode_mod.MMA, 1),
     # the CUDA-core kernel (f32): the f32 LM path, 34 valid tiles of 32
     # (lengths 1057..1088) over 16 splits; longer caches at two blocks an SM;
@@ -572,18 +578,80 @@ def test_decode_f32_summation_order_stays_inside_the_f32_tolerance(b, hq, hkv, s
     (2, 4, 2, 100, decode_mod.CUDA_CORE, 1),
 ])
 def test_decode_split_count_follows_the_shapes(b, hq, hkv, s, kernel, expect):
-    """Both kernels: at least 4 tiles of capacity per split and no more
-    blocks than about two per SM. Groups above a block's heads (16 on
-    either kernel) take several head tiles."""
-    assert decode_mod.n_splits(b, hq, hkv, s, kernel) == expect
+    """The CUDA-core kernel: at least 4 tiles of capacity per split and up
+    to about two blocks an SM. The tensor-core kernel: at least 8 tiles of
+    64 positions at D=128 per split (16 at D=64) and up to one block an SM,
+    rounded down to a power of two (its splits run as clusters of up to 8).
+    Groups above a block's heads (16 on either kernel) take several head
+    tiles."""
+    assert decode_mod.n_splits(b, hq, hkv, s, 128, kernel) == expect
+
+
+@pytest.mark.parametrize("b,hq,hkv,s,d,expect", [
+    (8, 24, 2, 2048, 128, 4),    # starcoder2-3b's decode step
+    (8, 32, 4, 2048, 128, 4),    # qwen3-moe's
+    (8, 24, 8, 2048, 64, 2),     # granite-moe's, D=64: half the bytes a tile
+    (8, 24, 2, 8192, 128, 8),    # a full 8192-position cache
+    (1, 24, 2, 32768, 128, 64),  # a full 32768-position cache at B=1
+    (3, 24, 2, 300, 128, 1), (1, 40, 2, 1000, 128, 2), (5, 12, 4, 777, 64, 1),
+    (64, 32, 8, 4096, 128, 1), (2, 8, 1, 4096, 64, 4),
+])
+def test_decode_mma_splits_form_whole_clusters(b, hq, hkv, s, d, expect):
+    """The tensor-core kernel's split count is a power of two (clusters of
+    min(nsplit, 8) tile the splits), at most the C entry's 128, its grid at
+    most one block an SM unless one split already overfills it, and each
+    split holds at least 8 * 64 * 128 / D positions of capacity, rounded
+    up."""
+    n = decode_mod.n_splits(b, hq, hkv, s, d, decode_mod.MMA)
+    blocks = b * hkv * -(-(hq // hkv) // decode_mod.GT)
+    assert n == expect
+    assert n & (n - 1) == 0 and 1 <= n <= 128 and n % min(n, decode_mod.MAX_CLUSTER) == 0
+    assert n == 1 or n * blocks <= decode_mod.SMS
+    assert n <= -(-(s * d) // decode_mod.MIN_SPLIT_ELEMS)
+
+
+@pytest.mark.parametrize("b,na,nb,d,route", [
+    (1, 289, 288, 64, tome_mod.SMALL),    # the ViT's B=1 call
+    (8, 289, 288, 64, tome_mod.SMALL),    # the ViT's cloud batch and kernel_bench's row
+    (128, 99, 98, 64, tome_mod.SMALL),    # vit-l16 serve_b128's first ToMe merge
+    (4, 2048, 2048, 64, tome_mod.LARGE),  # dit-s2's first merge at gen_1024
+    (4, 1571, 1570, 64, tome_mod.LARGE),  # its second
+    (4, 1022, 1022, 64, tome_mod.LARGE),  # its last
+    (1, 2048, 1024, 64, tome_mod.LARGE),  # the threshold, 2^21 scores
+    (1, 2047, 1024, 64, tome_mod.SMALL),  # one row short of it
+    (4, 2048, 2048, 16, tome_mod.SMALL),  # the large route takes D 64 and 128 only
+    (4, 2048, 2048, 128, tome_mod.LARGE),
+])
+def test_tome_route_follows_the_work(b, na, nb, d, route):
+    """tome_scores' route is a pure function of the call's shapes: the large
+    route from LARGE_MIN_WORK scores (B * Na * Nb) at D 64 and 128, the
+    small one below it, where the ViT's calls sit."""
+    assert tome_mod.route_for(b, na, nb, d) == route
+
+
+def test_tome_wrapper_takes_the_plain_version_on_cpu_whatever_the_route():
+    """On a CPU tensor the wrapper returns the plain version, with or
+    without a forced route, and launches nothing."""
+    rng = np.random.default_rng(31)
+    a, b = (torch.nn.functional.normalize(_t(_randn(rng, (2, n, 64))), dim=-1)
+            for n in (40, 33))
+    before = tome_mod.launches, tome_mod.launches_large
+    want = ref.tome_scores_ref(a, b)
+    for route in (None, tome_mod.SMALL, tome_mod.LARGE):
+        m, i = tome_mod.tome_scores(a, b, route=route)
+        assert torch.equal(m, want[0]) and torch.equal(i, want[1])
+    assert (tome_mod.launches, tome_mod.launches_large) == before
 
 
 def test_decode_path_shape_gives_every_split_several_tiles():
-    """At the LM path's shape each split walks 2 or 3 of the 17 valid tiles
-    (lengths 1025..1088): no split has a single tile, and none is empty."""
-    nsplit, nt = decode_mod.n_splits(8, 24, 2, 2048, decode_mod.MMA), -(-1088 // decode_mod.CH)
+    """At the LM path's shape each of the 4 splits walks 4 or 5 of the 17
+    valid tiles (lengths 1025..1088): no split has a single tile, and none
+    is empty; the whole share fits the ring (3 K/V pairs in flight at D=128,
+    refilled as they free)."""
+    nsplit = decode_mod.n_splits(8, 24, 2, 2048, 128, decode_mod.MMA)
+    nt = -(-1088 // decode_mod.CH)
     shares = [(i + 1) * nt // nsplit - i * nt // nsplit for i in range(nsplit)]
-    assert sum(shares) == nt and min(shares) >= 2 and max(shares) <= 3
+    assert nsplit == 4 and sum(shares) == nt and min(shares) >= 4 and max(shares) <= 5
 
 
 @pytest.mark.parametrize("length", [1057, 1088])
@@ -592,7 +660,7 @@ def test_decode_f32_path_shape_gives_every_split_several_tiles(length):
     S=2048): 34 valid tiles of 32 over 16 splits, 2 or 3 each, no split
     empty, and the grid (16 blocks a split) fills the card at about two
     blocks an SM."""
-    nsplit = decode_mod.n_splits(8, 24, 2, 2048, decode_mod.CUDA_CORE)
+    nsplit = decode_mod.n_splits(8, 24, 2, 2048, 128, decode_mod.CUDA_CORE)
     nt = -(-length // decode_mod.CH_F32)
     shares = [(i + 1) * nt // nsplit - i * nt // nsplit for i in range(nsplit)]
     assert nt == 34 and sum(shares) == nt and min(shares) >= 2 and max(shares) <= 3

@@ -440,7 +440,7 @@ def test_decode_f32_long_cache_many_splits_on_card(cuda, length):
     """B=1 over a 32768-position cache: 132 splits of 7 or 8 valid tiles,
     the last tile (and so the last split) partial, and every split's partial
     staged by the combine."""
-    assert decode_mod.n_splits(1, 24, 2, 32768, decode_mod.CUDA_CORE) == 132
+    assert decode_mod.n_splits(1, 24, 2, 32768, 128, decode_mod.CUDA_CORE) == 132
     gen = torch.Generator(device=cuda).manual_seed(6)
     q = torch.randn((1, 24, 128), generator=gen, device=cuda)
     k, v = (torch.randn((1, 32768, 2, 128), generator=gen, device=cuda) for _ in "kv")
@@ -852,3 +852,162 @@ def test_flash_mma_backward_copies_an_offset_dout_on_card(cuda, d):
     torch.cuda.synchronize()
     for g, a in zip(got, aligned):
         assert torch.equal(g, a)
+
+
+# ------------------------------------------- tome_scores' two routes, decode_mma's one launch
+
+TOME_ROUTE_SHAPES = ((1, 289, 288, 64), (8, 289, 288, 64), (2, 33, 257, 128), (3, 48, 49, 128),
+                     (1, 5, 3, 64), (2, 100, 700, 64), (1, 31, 256, 64), (3, 33, 513, 64),
+                     (4, 1022, 1022, 64))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,na,nb,d", TOME_ROUTE_SHAPES,
+                         ids=["x".join(map(str, s)) for s in TOME_ROUTE_SHAPES])
+def test_tome_routes_are_bit_equal_on_card(cuda, b, na, nb, d):
+    """Both routes take D 64 and 128: the same fmaf chains over d in
+    ascending order give the same (max, index) bit for bit, without and
+    with nb_len (a member at 0 among them), at block-edge shapes of either
+    route (the large one's 32 rows and 256 columns a pass, the small one's
+    8-row groups and 64-column warps)."""
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    a, bb = _unit(cuda, gen, (b, na, d)), _unit(cuda, gen, (b, nb, d))
+    nb_len = torch.randint(1, nb + 1, (b,), generator=gen, device=cuda, dtype=torch.int32)
+    nb_len[-1] = 0
+    for extra in (None, nb_len):
+        before = tome_mod.launches_large
+        small = tome_mod.tome_scores(a, bb, extra, route=tome_mod.SMALL)
+        large = tome_mod.tome_scores(a, bb, extra, route=tome_mod.LARGE)
+        torch.cuda.synchronize()
+        assert tome_mod.launches_large == before + 1
+        assert torch.equal(small[0], large[0]) and torch.equal(small[1], large[1])
+        _check_tome(a, bb, extra)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("na,nb", [(2048, 2048), (1571, 1570), (1022, 1022)],
+                         ids=["layer0", "layer1", "layer11"])
+def test_tome_large_route_at_the_dit_merges_on_card(cuda, na, nb):
+    """dit-s2's merges take the large-grid route; there, duplicate columns
+    tie to the first index (in one thread's columns, across threads, across
+    passes of 256), nb_len cuts columns off, and a member with no valid
+    column gives (-inf, 0)."""
+    assert tome_mod.route_for(4, na, nb, 64) == tome_mod.LARGE
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    a, bb = _unit(cuda, gen, (4, na, 64)), _unit(cuda, gen, (4, nb, 64))
+    sets = [(5, 37, 69, 261), (31, 32, 255, 256), (300, 301), (40, 8), (20, 530, nb - 1)]
+    for row, dups in enumerate(sets):
+        for j in dups[1:]:
+            bb[:, j] = bb[:, dups[0]]
+        a[:, row] = bb[:, dups[0]]
+    nb_len = torch.tensor([nb, 0, 600, nb - 1], dtype=torch.int32, device=cuda)
+    before = tome_mod.launches_large
+    for extra in (None, nb_len):
+        m, i = _check_tome(a, bb, extra)
+        for row, dups in enumerate(sets):
+            live = [j for j in dups if extra is None or j < 600]
+            assert i[0, row].item() == min(dups) and i[2, row].item() == min(live)
+    assert tome_mod.launches_large == before + 2
+    assert torch.all(m[1] == -torch.inf) and torch.all(i[1] == 0)
+
+
+def _decode_inputs(cuda, b, hq, hkv, s, d, seed, lengths):
+    """bf16 q, k, v with NaN and inf past each member's length (never read)."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    q = torch.randn((b, hq, d), generator=gen, device=cuda).bfloat16()
+    k, v = (torch.randn((b, s, hkv, d), generator=gen, device=cuda).bfloat16() for _ in "kv")
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    for i, n in enumerate(lengths):
+        k[i, n:], v[i, n:] = torch.nan, torch.inf
+    return q, k, v, lens
+
+
+DECODE_MMA_SHAPES = ((8, 24, 2, 2048, 128, 1088), (8, 32, 4, 2048, 128, 1088),
+                     (8, 24, 8, 2048, 64, 1040), (8, 24, 2, 8192, 128, 8192),
+                     (1, 24, 2, 32768, 128, 32731), (1, 24, 2, 32768, 128, 20001))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,hq,hkv,s,d,n", DECODE_MMA_SHAPES,
+                         ids=["starcoder2", "qwen3", "granite", "b8_s8192", "b1_s32768",
+                              "b1_s32768_20001"])
+def test_decode_mma_runs_are_bit_equal_on_card(cuda, b, hq, hkv, s, d, n):
+    """The tensor-core kernel at the LM decode steps (groups 12, 8 and 3),
+    a full 8192-position cache (one cluster of 8 splits) and B=1 over 32768
+    positions (64 splits: 8 clusters, then the slices' last blocks): within
+    the bf16 limit, and two calls on the same inputs give the same bits (the
+    clusters and the slices combine in a fixed order)."""
+    q, k, v, lens = _decode_inputs(cuda, b, hq, hkv, s, d, 13, [n] * b)
+    first = _check_decode(q, k, v, lens)
+    for _ in range(2):
+        assert torch.equal(first, decode_mod.decode_attention(q, k, v, lens))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hq,hkv,d", [(24, 8, 64), (32, 4, 128), (24, 2, 128), (24, 8, 128)],
+                         ids=["group3_d64", "group8", "group12", "group3"])
+@pytest.mark.parametrize("s", [2048, 8192])
+def test_decode_mma_ragged_lengths_and_groups_on_card(cuda, hq, hkv, d, s):
+    """Lengths 0 (outputs 0), 1, tile edges (63, 64, 65), a split edge and
+    full, beside each other in one call, at groups 3, 8 and 12: the tile
+    holding a length is read by cp.async with the positions past it zero
+    (NaN and inf there are never read)."""
+    lengths = [0, 1, 63, 64, 65, 1025, s - 1, s]
+    q, k, v, lens = _decode_inputs(cuda, len(lengths), hq, hkv, s, d, 14, lengths)
+    out = _check_decode(q, k, v, lens)
+    assert torch.all(out[0] == 0)
+    assert torch.equal(out, decode_mod.decode_attention(q, k, v, lens))
+
+
+def _split_partials(q, k, v, n, nsplit):
+    """(m, l, acc) per split of member 0's valid tiles of 64 positions,
+    spread over ``nsplit`` splits as the kernel spreads them, in f32 from
+    the plain arithmetic (m in natural units)."""
+    b, hq, d = q.shape
+    g = hq // k.shape[2]
+    nt = -(-n // decode_mod.CH)
+    qf = q[0].float()
+    kf, vf = (t[0].float().repeat_interleave(g, dim=1) for t in (k, v))  # [S, Hq, D]
+    parts = []
+    for sp in range(nsplit):
+        lo = sp * nt // nsplit * decode_mod.CH
+        hi = min((sp + 1) * nt // nsplit * decode_mod.CH, n)
+        x = torch.einsum("hd,phd->hp", qf, kf[lo:hi]) / d ** 0.5
+        m = x.amax(-1, keepdim=True)
+        p = torch.exp(x - m)
+        parts.append((m, p.sum(-1, keepdim=True), torch.einsum("hp,phd->hd", p, vf[lo:hi])))
+    return parts
+
+
+def _combine(parts):
+    """The partials merged in the given order, in f32 (before the output's
+    one rounding to bf16)."""
+    m = torch.stack([m for m, _, _ in parts]).amax(0)
+    l, acc = torch.zeros_like(parts[0][1]), torch.zeros_like(parts[0][2])
+    for mi, li, ai in parts:
+        w = torch.exp(mi - m)
+        l, acc = l + li * w, acc + ai * w
+    return acc / l
+
+
+@pytest.mark.gpu
+def test_decode_wrong_combines_fail_the_checks_on_card(cuda):
+    """The card checks see a wrong combine at the LM path's shape: a combine
+    that drops one split's partial reads above the bf16 limit against the
+    plain version, and one that sums the splits in another order than the
+    kernel's fixed one changes the f32 sums' bits, which a kernel whose
+    order moved from run to run would carry into its outputs and the
+    two-runs-bit-equal checks reject (the sound combine in split order stays
+    within the limit)."""
+    b, hq, hkv, s, d, n = 8, 24, 2, 2048, 128, 1088
+    q, k, v, lens = _decode_inputs(cuda, b, hq, hkv, s, d, 15, [n] * b)
+    nsplit = decode_mod.n_splits(b, hq, hkv, s, d, decode_mod.MMA)
+    assert nsplit >= 2
+    want = ref.decode_attention_ref(q, k, v, lens)[0].float()
+    parts = _split_partials(q, k, v, n, nsplit)
+    sound = _combine(parts)
+    assert (sound.bfloat16().float() - want).abs().max().item() <= 2e-2
+    dropped = _combine(parts[1:])
+    assert (dropped.bfloat16().float() - want).abs().max().item() > 2e-2
+    orders = [parts[::-1], parts[1:] + parts[:1], parts[::2] + parts[1::2]]
+    assert any(not torch.equal(_combine(o), _combine(parts)) for o in orders)

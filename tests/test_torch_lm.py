@@ -40,6 +40,10 @@ from repro_torch.configs import starcoder2_3b
 from repro_torch.models import layers as L
 from repro_torch.models import lm, moe, param
 
+# -n 6 workers, each running 8 intra-op threads on 8 cores, oversubscribe the CPU
+# (a 2 s case took 150 s among six copies): one thread a worker
+torch.set_num_threads(1)
+
 ATOL = 1e-5
 QUANT_SCALE = 0.05  # the reference hillclimb's int8 cache variants
 CONFIGS = {"starcoder2-3b": (jsc, starcoder2_3b), "internlm2-1.8b": (jil, internlm2_1_8b),

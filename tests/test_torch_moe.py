@@ -26,6 +26,10 @@ from repro.models import param as jparam
 from repro_torch.configs import granite_moe_3b_a800m, qwen3_moe_30b_a3b
 from repro_torch.models import moe, param
 
+# -n 6 workers, each running 8 intra-op threads on 8 cores, oversubscribe the CPU
+# (a 2 s case took 150 s among six copies): one thread a worker
+torch.set_num_threads(1)
+
 ATOL = 1e-5
 AUX_RTOL = 1e-6
 MOES = {"qwen3-moe-30b-a3b": (jqw, qwen3_moe_30b_a3b),

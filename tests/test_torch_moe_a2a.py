@@ -40,6 +40,10 @@ from repro_torch.sharding import rules
 
 from _ranks import run_ranks, run_reference
 
+# -n 6 workers, each running 8 intra-op threads on 8 cores, oversubscribe the CPU
+# (a 2 s case took 150 s among six copies): one thread a worker
+torch.set_num_threads(1)
+
 MOE_KW = dict(d_model=32, d_ff=16, n_experts=8, top_k=2, group_size=32)
 
 

@@ -20,6 +20,10 @@ from repro_torch.models import moe
 
 from _ranks import run_ranks, run_reference
 
+# -n 6 workers, each running 8 intra-op threads on 8 cores, oversubscribe the CPU
+# (a 2 s case took 150 s among six copies): one thread a worker
+torch.set_num_threads(1)
+
 CASES = [((1, 2), 8.0), ((1, 4), 8.0), ((2, 2), 8.0), ((2, 2), 1.25)]
 LEAVES = ("router", "w_gate", "w_up", "w_down")
 AUX = 0.3

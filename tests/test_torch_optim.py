@@ -24,6 +24,10 @@ from repro.optim import grad_compression as jgc
 
 from repro_torch.optim import adamw, grad_compression as gc
 
+# -n 6 workers, each running 8 intra-op threads on 8 cores, oversubscribe the CPU
+# (a 2 s case took 150 s among six copies): one thread a worker
+torch.set_num_threads(1)
+
 RTOL = 1e-6
 
 

@@ -22,6 +22,10 @@ from repro_torch.runtime import flags, hlo_bytes, hloprof, roofline
 
 from test_roofline import HLO
 
+# -n 6 workers, each running 8 intra-op threads on 8 cores, oversubscribe the CPU
+# (a 2 s case took 150 s among six copies): one thread a worker
+torch.set_num_threads(1)
+
 F32, BF16 = 4, 2
 
 

@@ -29,6 +29,11 @@ from repro_torch.core import engine, profiler, scheduler
 from repro_torch.launch import serve
 from repro_torch.runtime import fault_tolerance as ft
 from repro_torch.serving import batcher, faults, fleet, simcore, telemetry, workload
+import torch
+
+# -n 6 workers, each running 8 intra-op threads on 8 cores, oversubscribe the CPU
+# (a 2 s case took 150 s among six copies): one thread a worker
+torch.set_num_threads(1)
 
 _FRAME_FIELDS = ("latency_s", "violated", "deviation", "alpha", "split",
                  "accuracy", "payload_bytes", "bandwidth_bps", "queue_s", "logits")

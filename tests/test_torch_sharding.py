@@ -52,6 +52,10 @@ import jax
 from _ranks import run_ranks, run_reference
 from test_torch_serving import _port_profile
 
+# -n 6 workers, each running 8 intra-op threads on 8 cores, oversubscribe the CPU
+# (a 2 s case took 150 s among six copies): one thread a worker
+torch.set_num_threads(1)
+
 MESHES = ({"data": 1, "model": 1}, {"data": 2, "model": 4}, {"data": 16, "model": 16},
           {"pod": 2, "data": 16, "model": 16})
 ALPHAS = (0.2, 0.3, 0.4, 0.5, 0.6, 0.7, 0.8, 0.9)  # tests/test_execute_bucketed.py

@@ -62,6 +62,10 @@ from _ranks import ROOT, _env, run_ranks, run_reference
 import test_torch_train_mesh as train_mesh
 from test_torch_vision import _draw
 
+# -n 6 workers, each running 8 intra-op threads on 8 cores, oversubscribe the CPU
+# (a 2 s case took 150 s among six copies): one thread a worker
+torch.set_num_threads(1)
+
 # logits: f32, another summation order; the smoke weights (``_draw``) give
 # logits up to ~440, where 1e-4 absolute is 2.3e-7 of them (measured 4.4e-7
 # at (1,2)), so the limit is relative to their largest magnitude

@@ -60,6 +60,10 @@ from repro_torch.models import lm, param, resnet, swin, vit
 from repro_torch.optim import adamw
 from repro_torch.training import diffusion
 
+# -n 6 workers, each running 8 intra-op threads on 8 cores, oversubscribe the CPU
+# (a 2 s case took 150 s among six copies): one thread a worker
+torch.set_num_threads(1)
+
 LOSS_RTOL = 1e-5
 GRAD_OF_MAX = 1e-4       # of the largest |g| of any leaf
 GRAD_OF_LEAF = 2e-4      # of the leaf's own max|g|

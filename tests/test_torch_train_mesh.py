@@ -35,6 +35,11 @@ from repro_torch.models import param
 
 from _ranks import run_ranks, run_reference
 from test_torch_train import GRAD_OF_LEAF, GRAD_OF_MAX, LOSS_RTOL, ROUNDING_ONLY
+import torch
+
+# -n 6 workers, each running 8 intra-op threads on 8 cores, oversubscribe the CPU
+# (a 2 s case took 150 s among six copies): one thread a worker
+torch.set_num_threads(1)
 
 FAMILIES = ("vit-b16", "swin-b", "resnet-152", "starcoder2-3b", "qwen3-moe-30b-a3b",
             "dit-s2", "flux-dev")

@@ -31,6 +31,11 @@ from repro_torch.optim import grad_compression as gc
 from _ranks import run_ranks, run_reference
 from test_torch_train import LOSS_RTOL
 from test_torch_train_mesh import _check_all, _draw, _run_both
+import torch
+
+# -n 6 workers, each running 8 intra-op threads on 8 cores, oversubscribe the CPU
+# (a 2 s case took 150 s among six copies): one thread a worker
+torch.set_num_threads(1)
 
 
 @pytest.mark.parametrize("mesh", [(4, 1), (1, 4)], ids=["4x1", "1x4"])

@@ -37,6 +37,10 @@ from repro_torch import configs
 from repro_torch.configs import resnet_152, swin_b
 from repro_torch.models import param, resnet, swin
 
+# -n 6 workers, each running 8 intra-op threads on 8 cores, oversubscribe the CPU
+# (a 2 s case took 150 s among six copies): one thread a worker
+torch.set_num_threads(1)
+
 REL = 1e-5
 BF16_REL = 5e-2
 

@@ -30,6 +30,10 @@ from repro_torch.core import engine, pruning, tome
 from repro_torch.models import layers as L
 from repro_torch.models import param, vit
 
+# -n 6 workers, each running 8 intra-op threads on 8 cores, oversubscribe the CPU
+# (a 2 s case took 150 s among six copies): one thread a worker
+torch.set_num_threads(1)
+
 ALPHAS = (0.2, 0.3, 0.4, 0.5, 0.6, 0.7, 0.8, 0.9)
 SPLIT = 4
 PAD_ATOL = 2e-6
