@@ -36,6 +36,7 @@ from repro_torch.core.pruning import AccuracyModel
 from repro_torch.core.scheduler import Decision, ModelProfile
 from repro_torch.models import vit as vit_lib
 from repro_torch.models.param import flatten
+from repro_torch.runtime import spans
 from repro_torch.runtime.device import require_on, resolve_device
 from repro_torch.sharding import rules as rules_lib
 
@@ -315,7 +316,11 @@ def run_cloud_batch(cache: CompiledPlanCache, cfg: vit_lib.ViTConfig,
     Without ``buckets``, plans batch only when their full (schedule, split,
     token-count) geometry matches. With a ``BucketTable``, plans that share
     the schedule suffix past the split are padded up to a common bucket edge
-    and batch together through ``cloud_padded_fn``."""
+    and batch together through ``cloud_padded_fn``.
+
+    While ``torch.profiler`` records, the call is the span
+    ``engine.cloud_batch``, whose ``runtime.spans`` record counts its frames,
+    and each stacked forward the span ``engine.forward``."""
     n = cfg.n_layers
     groups: dict[tuple, list[ExecPlan]] = {}
     for plan in plans:
@@ -328,33 +333,35 @@ def run_cloud_batch(cache: CompiledPlanCache, cfg: vit_lib.ViTConfig,
             edge = buckets.edge_for(s, plan.x.shape[1])
             key = (plan.schedule[s:], s, edge, plan.x.shape[2], str(plan.x.dtype))
         groups.setdefault(key, []).append(plan)
-    for key, members in groups.items():
-        if buckets is None:
-            schedule, s = key[0], key[1]
-            x = _cat([m.x for m in members])
-            sizes = _cat([m.sizes for m in members])
-            fn = cache.cloud_fn(cfg, schedule, s, x)
-        else:
-            suffix, s, edge = key[0], key[1], key[2]
-            # pad once per distinct token count, not once per member
-            by_count: dict[int, list[ExecPlan]] = {}
+    with spans.batch("engine.cloud_batch", sum(len(m) for m in groups.values())):
+        for key, members in groups.items():
+            if buckets is None:
+                schedule, s = key[0], key[1]
+                x = _cat([m.x for m in members])
+                sizes = _cat([m.sizes for m in members])
+                fn = cache.cloud_fn(cfg, schedule, s, x)
+            else:
+                suffix, s, edge = key[0], key[1], key[2]
+                # pad once per distinct token count, not once per member
+                by_count: dict[int, list[ExecPlan]] = {}
+                for m in members:
+                    by_count.setdefault(m.x.shape[1], []).append(m)
+                chunks, members = [], []
+                for t in sorted(by_count):
+                    ms = by_count[t]
+                    chunks.append(_pad_tokens(_cat([m.x for m in ms]),
+                                              _cat([m.sizes for m in ms]), edge))
+                    members.extend(ms)
+                x = _cat([c[0] for c in chunks])
+                sizes = _cat([c[1] for c in chunks])
+                fn = cache.cloud_padded_fn(cfg, suffix, s, x)
+            with spans.span("engine.forward"):
+                logits = fn(params, x, sizes)
+            off = 0
             for m in members:
-                by_count.setdefault(m.x.shape[1], []).append(m)
-            chunks, members = [], []
-            for t in sorted(by_count):
-                ms = by_count[t]
-                chunks.append(_pad_tokens(_cat([m.x for m in ms]),
-                                          _cat([m.sizes for m in ms]), edge))
-                members.extend(ms)
-            x = _cat([c[0] for c in chunks])
-            sizes = _cat([c[1] for c in chunks])
-            fn = cache.cloud_padded_fn(cfg, suffix, s, x)
-        logits = fn(params, x, sizes)
-        off = 0
-        for m in members:
-            b = m.x.shape[0]
-            m.logits = logits[off:off + b]
-            off += b
+                b = m.x.shape[0]
+                m.logits = logits[off:off + b]
+                off += b
 
 
 def shard_params(params: dict, cfg: vit_lib.ViTConfig, rules) -> dict:

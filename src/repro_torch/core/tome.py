@@ -12,7 +12,9 @@ sort here passes ``stable=True``; ``.at[dst].add`` sums several sources into
 one destination in source order with the array's dtype rounding after each
 add (``sizes`` carries the activation dtype, so under bf16 merged sizes above
 256 round), which ``_scatter_add`` reproduces deterministically on any device
-(CUDA ``index_add_`` sums colliding indices in no fixed order).
+(CUDA ``index_add_`` sums colliding indices in no fixed order). Each call
+reads its pass count back to the host (span ``tome.readback``, counter
+``host_syncs``, ``runtime.spans``): two reads a merge, values and sizes.
 
 Under sharding rules (DTensor activations), ``tome_merge`` and
 ``tome_merge_padded`` run behind the local boundary ``rules.run_local``:
@@ -27,6 +29,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels import ops
+from repro_torch.runtime import spans
 from repro_torch.sharding.rules import run_local
 
 _ROWS = (("batch", None, None), ("batch", None, None), ("batch", None))  # x, metric, sizes
@@ -101,7 +104,10 @@ def _scatter_add(base: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor) -> t
     vals = vals.reshape(b * r, *vals.shape[2:])
     rank = rank.reshape(-1)
     zero = torch.zeros((), dtype=vals.dtype, device=vals.device)
-    for k in range(int(rank.max()) + 1):
+    with spans.span("tome.readback"):
+        passes = int(rank.max()) + 1
+    spans.count("host_syncs")
+    for k in range(passes):
         sel = (rank == k).reshape(-1, *([1] * (vals.dim() - 1)))
         out.index_add_(0, flat_idx, torch.where(sel, vals, zero))
     return out.reshape(base.shape)
@@ -132,8 +138,9 @@ def tome_merge(x: torch.Tensor, metric: torch.Tensor, sizes: torch.Tensor, r: in
         return x, sizes
 
     def merge(x, metric, sizes):
-        return merge_tokens(x, sizes, bipartite_soft_matching(metric, r,
-                                                              protect_first=protect_first))
+        with spans.span("tome.merge"):
+            return merge_tokens(x, sizes, bipartite_soft_matching(metric, r,
+                                                                  protect_first=protect_first))
     return run_local("tome_merge", merge, (x, metric, sizes), _ROWS, _OUT)
 
 
@@ -170,8 +177,9 @@ def tome_merge_padded(x: torch.Tensor, metric: torch.Tensor, sizes: torch.Tensor
         return x, sizes
 
     def merge(x, metric, sizes):
-        idx = padded_matching(metric, sizes, r, protect_first=protect_first)
-        x, sizes = merge_tokens(x, sizes, idx)
-        tail = torch.argsort((sizes <= 0.0).to(torch.int32), dim=-1, stable=True)
-        return _gather_rows(x, tail), torch.gather(sizes, 1, tail)
+        with spans.span("tome.merge"):
+            idx = padded_matching(metric, sizes, r, protect_first=protect_first)
+            x, sizes = merge_tokens(x, sizes, idx)
+            tail = torch.argsort((sizes <= 0.0).to(torch.int32), dim=-1, stable=True)
+            return _gather_rows(x, tail), torch.gather(sizes, 1, tail)
     return run_local("tome_merge_padded", merge, (x, metric, sizes), _ROWS, _OUT)
